@@ -3,19 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from hesaff_tpu_torch/csrc, holds each
-against its plain PyTorch version at the main path's shapes, runs
-extract() on the 200x160 oracle golden, and drives extract_batch on 16
-synthetic 800x640 images (the bench imagery of bench.py), checking the
-GPU result against a CPU run of the plain versions.  Exits non-zero on
-any failed phase; on success the last line of standard output is
+Builds the five CUDA kernels from hesaff_tpu_torch/csrc, holds each
+against its plain PyTorch version at the main path's shapes (phase 2),
+runs extract() on the 200x160 oracle golden (phase 3), and drives both
+batch entry points on 16 synthetic 800x640 images (the bench imagery of
+bench.py): extract_batch (phase 4) and the grouped serving path
+dist.extraction_step_grouped with bench.py's group table (phase 5),
+each checked against a CPU run of the plain versions on image 0.  Phase
+5 also times 7 more batches and profiles one (torch.profiler): the
+device's busy and idle share of the batch, device ms by kernel, and the
+host ms of each stage's span in dist.py.  Exits
+non-zero on any failed phase; on success the last line of standard
+output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-and the line before it holds the per-kernel record (launches on the
-main path, max abs error against the plain version, median ms of the
-kernel and of the plain version).  There is no CPU mode: without a CUDA
-device the script exits with an error.
+and the line before it holds the per-kernel record: launches on the
+serving path (phase 5; phase 4's beside them), max abs error against
+the plain version, median ms of the kernel and of the plain version,
+and the bound: the larger of the bytes it must move over 3.35 TB/s and
+the float32 operations its function needs over 67 TFLOP/s (H100 SXM
+data sheet), both counted from this run's inputs.  No single PyTorch call computes any of
+the five functions, so library_ms is null.  There is no CPU mode:
+without a CUDA device the script exits with an error.
 """
 
 from __future__ import annotations
@@ -43,7 +53,14 @@ KERNELS = (
      "hesaff_tpu/ops/pallas_detect.py:324"),
     ("affine_adapt", "hesaff_tpu_torch/csrc/affine_adapt.cu",
      "hesaff_tpu/ops/pallas_affine.py:474"),
+    ("patches_group", "hesaff_tpu_torch/csrc/patches_group.cu",
+     "hesaff_tpu/ops/pallas_patches.py:521"),
+    ("sift_desc", "hesaff_tpu_torch/csrc/sift_desc.cu",
+     "hesaff_tpu/ops/pallas_sift.py:171"),
 )
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
+# outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 failures: list[str] = []
 
@@ -56,25 +73,6 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         failures.append(what)
         log(f"FAIL: {what}")
-
-
-def _synth(seed: int, width: int, height: int) -> np.ndarray:
-    sys.path.insert(0, GOLDEN)
-    import gen_images
-
-    return (gen_images.synth_image(width, height, seed=seed)
-            .astype(np.float32).mean(axis=-1))
-
-
-def bench_images() -> np.ndarray:
-    """bench.py's imagery: synth_image(800, 640, seed) for seeds 0-15,
-    channel-mean gray; made in worker processes (numpy, ~9 s each)."""
-    ctx = multiprocessing.get_context("spawn")
-    workers = min(BATCH, os.cpu_count() or 1)
-    with concurrent.futures.ProcessPoolExecutor(workers,
-                                                mp_context=ctx) as ex:
-        return np.stack(list(ex.map(_synth, range(BATCH), [WIDTH] * BATCH,
-                                    [HEIGHT] * BATCH)))
 
 
 def timed(fn, reps: int = 10) -> float:
@@ -93,6 +91,55 @@ def timed(fn, reps: int = 10) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """Least time for the work: the larger of bytes and operations
+    over the card's peaks."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return dict(bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations",
+                library_ms=None)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def kernel_modules() -> dict:
+    from hesaff_tpu_torch.ops import (cuda_affine, cuda_blur, cuda_detect,
+                                      cuda_patches, cuda_sift)
+
+    return {"blur_doh": cuda_blur, "detect_walk": cuda_detect,
+            "affine_adapt": cuda_affine, "patches_group": cuda_patches,
+            "sift_desc": cuda_sift}
+
+
+def bench_config():
+    """HesaffConfig with bench.py's capacities: nothing overflows on its
+    imagery."""
+    from hesaff_tpu_torch import HesaffConfig
+
+    return dataclasses.replace(HesaffConfig(), candidate_cap_max=8192,
+                               affine_cap_max=8192, candidate_cap_div=128,
+                               affine_cap_div=256)
+
+
+def _synth(seed: int) -> np.ndarray:
+    sys.path.insert(0, GOLDEN)
+    import gen_images
+
+    return (gen_images.synth_image(WIDTH, HEIGHT, seed=seed)
+            .astype(np.float32).mean(axis=-1))
+
+
+def bench_images(batch: int) -> np.ndarray:
+    """bench.py's imagery (synthetic 800x640, seeds 0..batch-1,
+    channel-mean gray), made in worker processes."""
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            min(batch, os.cpu_count() or 1), mp_context=ctx) as ex:
+        return np.stack(list(ex.map(_synth, range(batch))))
 
 
 def card_name_and_limit() -> str:
@@ -146,11 +193,13 @@ def phase_kernels(images, cfg, dev) -> dict:
     log(f"phase 2 blur_doh {tuple(first.shape)} k={len(taps)}: blur err "
         f"{eb:.3g} (atol 1e-4), resp err {er:.3g} (atol 0.1); kernel "
         f"{ms:.3f} ms, plain {pms:.3f} ms")
-    rec["blur_doh"] = dict(max_abs_err=er, ms=ms, plain_ms=pms)
+    # one read, two writes; a 2-pass blur (2 flops a tap) and the DoH
+    rec["blur_doh"] = dict(max_abs_err=er, ms=ms, plain_ms=pms, **bound(
+        3 * nbytes(first), first.numel() * (4 * len(taps) + 13)))
 
     # K2 on the real octave-0 responses, every detection level
     o = pyramid.build_octave(first, pd, cfg)
-    e2, ms, pms = 0.0, 0.0, 0.0
+    e2, ms, pms, b2, f2 = 0.0, 0.0, 0.0, 0, 0
     for l in range(1, cfg.num_scales + 1):
         args = (o.resps[:, l - 1], o.resps[:, l], o.resps[:, l + 1],
                 o.blurs[:, l])
@@ -164,12 +213,16 @@ def phase_kernels(images, cfg, dev) -> dict:
         close = d <= 1e-5 + 1e-6 * ptab[pok].abs()
         check(bool(close.all()), f"detect_walk tab, level {l}")
         e2 = max(e2, float(d.max()) if d.numel() else 0.0)
+        # 26-neighbour NMS a pixel; <= 5 steps of a 3x3 solve a candidate
+        b2 += nbytes(*args, ok, cell, tab, cand)
+        f2 += 30 * o.resps[:, l].numel() + 300 * int(cand.sum())
         ms += timed(lambda: cuda_detect.detect_walk(*args, cfg))
         pms += timed(lambda: cuda_detect.detect_walk_plain(*args, cfg), 3)
     log(f"phase 2 detect_walk 3 x {tuple(o.resps[:, 1].shape)}: ok/cand/"
         f"cells equal, tab max err {e2:.3g} (rtol 1e-6, atol 1e-5); kernel "
         f"{ms:.3f} ms, plain {pms:.3f} ms (3 levels)")
-    rec["detect_walk"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms)
+    rec["detect_walk"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms,
+                              **bound(b2, f2))
 
     # K4 on the octave's real keypoints
     comp = detect.detect_octave_batch(o.resps, o.blurs, sig, pd, cfg)
@@ -199,8 +252,107 @@ def phase_kernels(images, cfg, dev) -> dict:
         f"flips {flips}, iteration flips {it_flips} (budget {allow}), U max "
         f"err {e4:.3g} (rtol 1e-4, atol 5e-5); kernel {ms:.3f} ms, plain "
         f"{pms:.3f} ms")
-    rec["affine_adapt"] = dict(max_abs_err=e4, ms=ms, plain_ms=pms)
+    # the pixels under each active keypoint's sampling grid, about
+    # ((G - 1) ratio + 2)^2 (capped at the stack), the per-keypoint
+    # arrays; ~30 flops per grid sample and iteration
+    grid = ((cfg.smm_window_size - 1) * kargs[5][act].double() + 2) ** 2
+    iters = torch.where(kr_.ok & act, kr_.iters + 1, 1)[act]
+    rec["affine_adapt"] = dict(max_abs_err=e4, ms=ms, plain_ms=pms, **bound(
+        min(nbytes(kargs[0]), 4 * int(grid.sum()))
+        + nbytes(*kargs[1:7], kr_.ok, kr_.u11, kr_.u12, kr_.u21, kr_.u22,
+                 kr_.iters),
+        int(iters.sum()) * cfg.smm_window_size ** 2 * 30))
     return rec
+
+
+def phase_group_kernels(images, cfg, rec) -> None:
+    """K5 on the real keypoints of every group of the serving path
+    (full resolution and both pyramid-tail groups, from phase A's first
+    levels) and K6 on the patches it accepts, each against its plain
+    version."""
+    import torch
+
+    from hesaff_tpu_torch import dist, sift
+    from hesaff_tpu_torch.ops import cuda_patches, cuda_sift
+
+    flat, levels_a, _, ncap = dist.phase_a(images, cfg)
+    groups = dist.default_group_spec(HEIGHT, WIDTH, cfg, per_image_cap=1024,
+                                     batch=BATCH)
+    e5, ms, pms, b5, f5, kept = 0.0, 0.0, 0.0, 0, 0.0, []
+    for bsize, _, gi, a, valid, _ in dist.group_selections(flat, cfg, groups,
+                                                           ncap):
+        kp = (gi, *(a[k] for k in ("x", "y", "s", "a11", "a21", "a22")))
+        if bsize <= dist.FULL_RES_GROUP_MAX:
+            args, cbad = cuda_patches.group_args(images, bsize, *kp, cfg,
+                                                 valid)
+            what = f"group {bsize}"
+        else:
+            ps, octave, bsrc = dist.tail_source_plan(bsize, 1.0)
+            src = levels_a[octave - 1].contiguous()
+            args, cbad = cuda_patches.group_args(
+                src, bsrc, *kp, cfg, valid, ps=ps, orig_hw=(HEIGHT, WIDTH))
+            what = (f"tail group {bsize} (ps {ps:g}, octave {octave}, "
+                    f"bucket_src {bsrc})")
+        pk, bad = cuda_patches.patches_group(*args)
+        pp, pbad = cuda_patches.patches_group_plain(*args)
+        ok, pok = valid & ~cbad & ~bad, valid & ~cbad & ~pbad
+        check(bool(torch.equal(ok, pok)), f"patches_group ok, {what}")
+        good = ~pbad
+        err = float((pk - pp)[good].abs().max()) if bool(good.any()) else 0.0
+        check(err <= 1e-3, f"patches_group {what}: max err {err} > 1e-3")
+        e5 = max(e5, err)
+        kms = timed(lambda: cuda_patches.patches_group(*args))
+        kpms = timed(lambda: cuda_patches.patches_group_plain(*args), 3)
+        ms, pms = ms + kms, pms + kpms
+        # source: the workspaces' pixels (capped at the level), read once;
+        # the per-keypoint arrays and the patches.  Operations of each
+        # active keypoint: ~10 per bilinear sample (the row coordinate's
+        # multiply-add, two fractions, three lerps), then WS.R^T and R.T
+        # over the band of R its own taps give (non-zero taps + 1)
+        P = cfg.patch_size
+        src, ws = args[0], args[7][valid].double()
+        band = torch.minimum((args[9][valid] != 0).sum(1).double() + 1, ws)
+        b5 += (min(nbytes(src), 4 * int((ws * ws).sum()))
+               + nbytes(*args[1:11], pk, bad))
+        f5 += float((10 * ws * ws + 2 * P * ws * band
+                     + 2 * P * P * band).sum())
+        kept.append(pk[ok])
+        log(f"phase 2 patches_group {what}: {int(valid.sum())} keypoints "
+            f"in {valid.numel()} slots, ok {int(ok.sum())} (equal), max "
+            f"err {err:.3g} (atol 1e-3); kernel {kms:.3f} ms, plain "
+            f"{kpms:.3f} ms")
+    rec["patches_group"] = dict(max_abs_err=e5, ms=ms, plain_ms=pms,
+                                **bound(b5, f5))
+
+    pt = torch.cat(kept).contiguous()
+    d = cuda_sift.sift_descriptors(pt, cfg)
+    r = sift.sift_descriptors(pt, cfg)
+    diff = (d - r).abs()
+    e6 = float(diff.max())
+    exact = float((diff == 0).float().mean())
+    check(e6 <= 1, f"sift_desc: max step {e6} > 1")
+    check(exact >= 0.99, f"sift_desc: exact share {exact} < 0.99")
+    ms = timed(lambda: cuda_sift.sift_descriptors(pt, cfg))
+    pms = timed(lambda: sift.sift_descriptors(pt, cfg), 3)
+    # what the function needs a patch: ~30 flops a pixel (normalise,
+    # gradients, magnitude, atan2, the two-bin orientation split); the
+    # row binning adds a pixel's 2 orientation values into its row's
+    # non-zero spatial bins, on the mask's support (a multiply-add each);
+    # the column binning adds the (row bin, orientation, column) sums
+    # into each column's non-zero bins
+    from hesaff_tpu_torch.ops import masks
+
+    K, P = pt.shape[0], cfg.patch_size
+    nb, no = cfg.spatial_bins, cfg.orientation_bins
+    nz = (masks.sift_spatial_bins(P, nb) != 0).sum(axis=1)
+    support = masks.circular_gauss_mask(P) > 0
+    flops = K * (30 * P * P + 2 * 2 * int((support * nz[:, None]).sum())
+                 + 2 * nb * no * int(nz.sum()))
+    rec["sift_desc"] = dict(max_abs_err=e6, ms=ms, plain_ms=pms,
+                            **bound(nbytes(pt, d), flops))
+    log(f"phase 2 sift_desc on {K} real patches: max step {e6:g} (<= 1), "
+        f"exact {exact:.4f} (>= 0.99); kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms")
 
 
 def _ellipse(f, mr_size):
@@ -249,7 +401,7 @@ def phase_golden(dev) -> None:
         f"worst desc L1 {worst_l1:.3f} (< 0.5)")
 
 
-def _gate(gpu, cpu) -> None:
+def _gate(gpu, cpu, label: str) -> None:
     """bench.py's on-chip parity gate, GPU result against the CPU run."""
     n_g, n_c = gpu.n, cpu.n
     check(abs(n_g - n_c) <= 0.01 * max(n_c, 1),
@@ -273,7 +425,7 @@ def _gate(gpu, cpu) -> None:
     check(p995 <= 0.02, f"gate: U p99.5 {p995} > 0.02")
     check(dmean <= 0.05, f"gate: desc mean L1 {dmean} > 0.05")
     check(frac <= 0.012, f"gate: kp with a bin off by > 2: {frac} > 0.012")
-    log(f"phase 4 gate image 0, GPU vs CPU plain: matched {len(common)}/"
+    log(f"{label} gate image 0, GPU vs CPU plain: matched {len(common)}/"
         f"{n_c} (gpu {n_g}), U p99.5 {p995:.4f} (<= 0.02), desc mean L1 "
         f"{dmean:.4f} (<= 0.05), kp max>2 frac {frac:.4f} (<= 0.012)")
 
@@ -282,10 +434,8 @@ def phase_batch(images_np, cfg, dev) -> dict:
     import torch
 
     from hesaff_tpu_torch import extract_batch
-    from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, cuda_detect
 
-    mods = {"blur_doh": cuda_blur, "detect_walk": cuda_detect,
-            "affine_adapt": cuda_affine}
+    mods = kernel_modules()
     images = torch.as_tensor(images_np, device=dev)
     extract_batch(images, cfg)                        # warm-up
     torch.cuda.synchronize()
@@ -317,8 +467,125 @@ def phase_batch(images_np, cfg, dev) -> dict:
     t0 = time.perf_counter()
     cpu = extract_batch(torch.as_tensor(images_np[:1]), cfg)[0]
     log(f"  CPU plain run of image 0: {time.perf_counter() - t0:.1f} s")
-    _gate(feats[0], cpu)
+    _gate(feats[0], cpu, "phase 4")
     return launches
+
+
+def _image_features(d, b: int):
+    """Image b's valid slots of DenseFeatures as host Features."""
+    from hesaff_tpu_torch import Features
+
+    m = (d.valid & (d.img_idx == b)).cpu().numpy()
+    g = lambda k: getattr(d, k).cpu().numpy()[m]
+    return Features(**{k: g(k) for k in Features._fields})
+
+
+def phase_grouped(images_np, cfg, dev) -> dict:
+    """The serving path: dist.extraction_step_grouped with bench.py's
+    group table (per-image cap 1024, batch 16)."""
+    import torch
+
+    from hesaff_tpu_torch import dist
+
+    mods = kernel_modules()
+    groups = dist.default_group_spec(HEIGHT, WIDTH, cfg, per_image_cap=1024,
+                                     batch=BATCH)
+    images = torch.as_tensor(images_np, device=dev)
+    dist.extraction_step_grouped(images, cfg, groups)     # warm-up
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = dist.extraction_step_grouped(images, cfg, groups)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    n_valid = int(out.valid.sum())
+    overflow = int(out.overflow)
+    v = out.valid
+    finite = all(bool(torch.isfinite(getattr(out, k)[v]).all())
+                 for k in ("x", "y", "s", "a11", "a12", "a21", "a22"))
+    check(finite, "grouped: non-finite keypoint fields")
+    check(out.desc.dtype == torch.uint8 and tuple(out.desc.shape)
+          == (v.numel(), 128), "grouped: descriptor shape/type")
+    check(n_valid > 0, "grouped: no descriptors")
+    check(overflow == 0, f"grouped: overflow {overflow}")
+    for k, n in launches.items():
+        check(n > 0, f"grouped: kernel {k} never launched on the path")
+    log(f"phase 5 grouped {BATCH}x{HEIGHT}x{WIDTH}, groups {groups}: "
+        f"{n_valid} valid descriptors in {v.numel()} slots, overflow "
+        f"{overflow}, wall {wall * 1000:.1f} ms/batch after one warm-up, "
+        f"{n_valid / wall:.0f} desc/s; launches {launches}")
+
+    walls = []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        dist.extraction_step_grouped(images, cfg, groups)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(walls))
+    log(f"  7 more batches: wall ms {[round(w, 3) for w in walls]}, median "
+        f"{med:.3f} -> {n_valid / med * 1e3:.0f} desc/s")
+    profile_grouped(images, cfg, groups)
+
+    t0 = time.perf_counter()
+    cpu = dist.extraction_step_grouped(torch.as_tensor(images_np[:1]), cfg,
+                                       groups)
+    log(f"  CPU plain grouped run of image 0: "
+        f"{time.perf_counter() - t0:.1f} s")
+    _gate(_image_features(out, 0), _image_features(cpu, 0), "phase 5")
+    return launches
+
+
+_SPANS = ("phase A", "group ", "direct branch", "SIFT")
+
+
+def profile_grouped(images, cfg, groups) -> None:
+    """One batch of the serving path under torch.profiler: the device's
+    busy time (the union of its kernel and copy intervals) and idle share
+    of the batch's wall, device ms by kernel, and the host ms of each
+    stage span of dist.py.  The profiler links a kernel to the PyTorch op
+    that launched it, and the port's own kernels are launched outside
+    any op, so device time is read by kernel, not by span."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hesaff_tpu_torch import dist
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dist.extraction_step_grouped(images, cfg, groups)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    span = lambda e: (getattr(e, "is_user_annotation", False)
+                      or e.name.startswith(_SPANS))
+    work = [e for e in events
+            if e.device_type == DeviceType.CUDA and not span(e)]
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in work):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    busy /= 1e3
+    log(f"  profiled batch: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+        f"idle share {1.0 - busy / wall:.3f}")
+    spans = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith(_SPANS)]
+    log(f"  host ms by span (sum {sum(ms for _, ms in spans):.3f}): "
+        + "; ".join(f"{name} {ms:.3f}" for name, ms in spans))
+    per_kernel = {}
+    for e in work:
+        per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
+                              + e.time_range.elapsed_us() / 1e3)
+    log("  device ms by kernel (top 10): " + "; ".join(
+        f"{k[:60]} {v:.3f}"
+        for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]))
 
 
 def main() -> int:
@@ -328,7 +595,6 @@ def main() -> int:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
-    from hesaff_tpu_torch import HesaffConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -341,22 +607,26 @@ def main() -> int:
     phase_build()
 
     t0 = time.perf_counter()
-    images_np = bench_images()
+    images_np = bench_images(BATCH)
+    check(images_np.shape == (BATCH, HEIGHT, WIDTH),
+          f"bench imagery shape {images_np.shape}")
     log(f"  bench imagery: {images_np.shape} in "
         f"{time.perf_counter() - t0:.1f} s")
-    # bench.py's capacities, sized so nothing overflows on this imagery
-    cfg = dataclasses.replace(HesaffConfig(), candidate_cap_max=8192,
-                              affine_cap_max=8192, candidate_cap_div=128,
-                              affine_cap_div=256)
-    rec = phase_kernels(torch.as_tensor(images_np, device=dev), cfg, dev)
+    cfg = bench_config()
+    images = torch.as_tensor(images_np, device=dev)
+    rec = phase_kernels(images, cfg, dev)
+    phase_group_kernels(images, cfg, rec)
+    del images
     phase_golden(dev)
-    launches = phase_batch(images_np, cfg, dev)
+    batch_launches = phase_batch(images_np, cfg, dev)
+    launches = phase_grouped(images_np, cfg, dev)
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed")
         return 1
     log(card)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name], **rec[name])
+                    launches=launches[name],
+                    launches_extract_batch=batch_launches[name], **rec[name])
                for name, src, rep in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

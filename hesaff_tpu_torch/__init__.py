@@ -2,18 +2,21 @@
 
 The port of ``hesaff_tpu`` (JAX) to PyTorch with hand-written CUDA
 kernels for NVIDIA Hopper (sm_90a).  The JAX package stays the
-reference; this package imports no JAX.
+reference; this package imports nothing from it, and no JAX.
 
 Public API
 ----------
-    HesaffConfig   — frozen parameter set, shared with hesaff_tpu
+    HesaffConfig   — frozen parameter set (the JAX package's fields)
     extract        — single-image extraction -> Features
     extract_batch  — same-size image batch -> list of Features
     Features, ExtractStats — output records
+    dist.extraction_step_grouped — the grouped serving path ->
+                     DenseFeatures of tensors
 
-A CPU tensor runs every stage as plain PyTorch; a CUDA tensor runs the
-three kernels of ``ops/cuda_*.py``, which are built from ``csrc/`` at
-first use.
+Entry points run on the GPU unless given a CPU tensor or
+device="cpu".  A CPU tensor runs every stage as plain PyTorch; a CUDA
+tensor runs the five kernels of ``ops/cuda_*.py``, which are built from
+``csrc/`` at first use.
 """
 
 from hesaff_tpu_torch.batch import extract_batch

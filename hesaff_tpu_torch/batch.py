@@ -6,8 +6,9 @@ Phase A (device): for every octave, the blur + DoH ladder, the dense
 detection walk, and the affine adaptation of the cross-image flattened
 keypoints; then the rectified frames.  Phase B: the keypoint arrays go
 to the host, accepted keypoints of the whole batch are grouped by patch
-workspace bucket, each bucket's patches are extracted on the device, and
-one SIFT pass describes them all.
+workspace bucket, each bucket's patches are extracted on the device
+(through the fused patch kernel on a GPU), and one SIFT pass (the SIFT
+kernel on a GPU) describes them all.
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ import torch
 from hesaff_tpu_torch.affine_shape import adapt_flat
 from hesaff_tpu_torch.config import DEFAULT_CONFIG, HesaffConfig
 from hesaff_tpu_torch.detect import detect_octave_batch
+from hesaff_tpu_torch.ops.cuda_sift import sift_descriptors
 from hesaff_tpu_torch.ops.linalg import rectify_up_is_up
 from hesaff_tpu_torch.patches import (BUCKET_SIZES, bucket_for,
                                       extract_bucket_batch, patch_image_size)
-from hesaff_tpu_torch.pipeline import ExtractStats, Features
+from hesaff_tpu_torch.pipeline import ExtractStats, Features, resolve_device
 from hesaff_tpu_torch.pyramid import (build_octave, level_sigmas,
                                       prepare_first_level)
 
@@ -52,13 +54,16 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig) -> dict:
     """Phase A over an image batch: (B, H, W) -> dict of (B, N_cap).
 
     Fields: ok (detected and adapted), det_ok (detected), x, y, s,
-    response, type, a11..a22 (rectified frame), and (B, octaves)
-    overflow and n_cand.
+    response, type, a11..a22 (rectified frame), (B, octaves) overflow
+    and n_cand, and next_firsts: the list of the octaves' next first
+    levels (next_firsts[o - 1] is octave o's first level, a by-product
+    of the ladder that the grouped path's pyramid tail samples).
     """
     B = images.shape[0]
     sig = level_sigmas(cfg)
     cur, pd = prepare_first_level(images, cfg)
     fields = defaultdict(list)
+    next_firsts = []
     octave = 0
     while (cur.shape[-2] > cfg.min_octave_size
            and cur.shape[-1] > cfg.min_octave_size):
@@ -78,12 +83,13 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig) -> dict:
             fields[k].append(v.reshape(shp))
         fields["overflow"].append(comp["overflow"][:, None])
         fields["n_cand"].append(comp["n_cand"][:, None])
+        next_firsts.append(o.next_first)
         cur = o.next_first
         pd *= 2.0
         octave += 1
     if not fields:
         z = lambda dt: torch.zeros((B, 0), dtype=dt, device=images.device)
-        return {k: z(dt) for k, dt in (
+        out = {k: z(dt) for k, dt in (
             ("ok", torch.bool), ("det_ok", torch.bool),
             ("x", torch.float32), ("y", torch.float32),
             ("s", torch.float32), ("response", torch.float32),
@@ -91,7 +97,10 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig) -> dict:
             ("a12", torch.float32), ("a21", torch.float32),
             ("a22", torch.float32), ("overflow", torch.int64),
             ("n_cand", torch.int64))}
-    return {k: torch.cat(v, dim=1) for k, v in fields.items()}
+    else:
+        out = {k: torch.cat(v, dim=1) for k, v in fields.items()}
+    out["next_firsts"] = next_firsts
+    return out
 
 
 def _pad_to(n: int, minimum: int = 64) -> int:
@@ -103,16 +112,17 @@ def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
     """Extract features from a batch of same-size images.
 
     images: (B, H, W) float32 array or tensor; device: where to run
-    (default: the tensor's device, or the CPU for numpy input).
-    Returns a list of B Features (and an ExtractStats for the batch
-    when return_stats is set).
+    (default: the tensor's device, or the GPU for numpy input; pass
+    "cpu" to run on the CPU).  Returns a list of B Features (and an
+    ExtractStats for the batch when return_stats is set).  On a GPU the
+    patch and SIFT stages run the fused patch and SIFT kernels.
     """
-    if device is None:
-        device = images.device if isinstance(images, torch.Tensor) else "cpu"
-    images = torch.as_tensor(images, dtype=torch.float32, device=device)
+    images = torch.as_tensor(images, dtype=torch.float32,
+                             device=resolve_device(images, device))
     images = images.contiguous()
     B = images.shape[0]
     out = detect_affine_batch(images, cfg)
+    out.pop("next_firsts")
     out = {k: v.cpu().numpy() for k, v in out.items()}
 
     ok = out["ok"]
@@ -160,8 +170,6 @@ def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
     described = np.nonzero(patch_ok)[0]
     n_desc = len(described)
     if n_desc:
-        from hesaff_tpu_torch.sift import sift_descriptors
-
         pin = patches[torch.as_tensor(described, device=images.device)]
         descs = sift_descriptors(pin, cfg).cpu().numpy().astype(np.uint8)
     else:

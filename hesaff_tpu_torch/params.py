@@ -3,9 +3,8 @@
 The system has no learned weights; what a run reads besides its images
 is the configuration and these tables derived from it: the SMM
 Gaussian mask, the circular SIFT mask and the spatial bin weights (from
-the numpy-only ``hesaff_tpu.ops.masks``, shared with the JAX package),
-and the Gaussian ladder taps (from this package's own
-``gaussian_taps`` and ``level_sigmas``).
+``ops/masks.py``), and the Gaussian ladder taps (from ``gaussian_taps``
+and ``level_sigmas``).
 """
 
 from __future__ import annotations
@@ -14,8 +13,8 @@ import functools
 
 import torch
 
-from hesaff_tpu.ops import masks
 from hesaff_tpu_torch.config import HesaffConfig
+from hesaff_tpu_torch.ops import masks
 from hesaff_tpu_torch.pyramid import first_level_taps, ladder_taps
 
 

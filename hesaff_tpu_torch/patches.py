@@ -172,6 +172,10 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
     bucket can hold direct-branch keypoints.  The frame must be
     rectified (a12 == 0).  Returns (patches (K, P, P), ok (K,)) with
     ok = False where the patch touches the image boundary.
+
+    On a CUDA tensor the blur-branch keypoints go through the fused
+    patch kernel (ops/cuda_patches) and only direct-branch keypoints
+    take the plain direct warp.
     """
     P = cfg.patch_size
     B, H, W = images.shape
@@ -179,15 +183,18 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
     dev = x.device
     if active is None:
         active = torch.ones(K, dtype=torch.bool, device=dev)
+    use_blur = (bucket - 2) / P > cfg.oversample_cutoff
+    smallest_ws = max(prev_bucket + 1, _min_workspace(cfg))
+    mixed = use_blur and smallest_ws <= cfg.oversample_cutoff * P + 2
+    if images.device.type == "cuda":
+        return _bucket_on_card(images, bucket, img_idx, x, y, s, a11, a21,
+                               a22, cfg, active, use_blur, mixed)
+
     S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
     its = fdiv(S.float(), P)
     ws = S + 2
     corner_bad = check_borders(H, W, P, P, x, y, a11 * its, a12 * its,
                                a21 * its, a22 * its)
-
-    use_blur = (bucket - 2) / P > cfg.oversample_cutoff
-    smallest_ws = max(prev_bucket + 1, _min_workspace(cfg))
-    mixed = use_blur and smallest_ws <= cfg.oversample_cutoff * P + 2
     kmax = _max_ksize_for_bucket(bucket, P, cfg.patch_smooth_factor)
 
     patches = torch.zeros((K, P, P), dtype=torch.float32, device=dev)
@@ -220,3 +227,55 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
         patches[ii] = patch
         touched[ii] = tch
     return patches, active & ~corner_bad & ~touched
+
+
+def direct_patches(images: torch.Tensor, img_idx, x, y, s, a11, a21, a22,
+                   cfg: HesaffConfig, active):
+    """Direct-warp branch: a P x P warp with A * imageToPatchScale and no
+    smoothing, for keypoints with imageToPatchScale <= oversample_cutoff.
+
+    Arguments as extract_bucket_batch's (rectified frame).  Returns
+    (patches (K, P, P), ok (K,)).
+    """
+    P = cfg.patch_size
+    B, H, W = images.shape
+    S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
+    its = fdiv(S.float(), P)
+    corner_bad = check_borders(H, W, P, P, x, y, a11 * its, 0.0, a21 * its,
+                               a22 * its)
+    K = x.shape[0]
+    patches = torch.zeros((K, P, P), dtype=torch.float32, device=x.device)
+    touched = torch.zeros(K, dtype=torch.bool, device=x.device)
+    sel = active.nonzero(as_tuple=True)[0]
+    chunk = max(1, _CHUNK_ELEMS // (P * P))
+    for start in range(0, sel.numel(), chunk):
+        ii = sel[start:start + chunk]
+        itss = its[ii]
+        patches[ii], touched[ii] = _warp(
+            images, img_idx[ii], P, x[ii], y[ii], a11[ii] * itss,
+            a21[ii] * itss, a22[ii] * itss, torch.full_like(S[ii], P))
+    return patches, active & ~corner_bad & ~touched
+
+
+def _bucket_on_card(images, bucket: int, img_idx, x, y, s, a11, a21, a22,
+                    cfg: HesaffConfig, active, use_blur: bool, mixed: bool):
+    """extract_bucket_batch on a GPU: blur-branch keypoints through the
+    fused patch kernel, direct-branch keypoints through the direct
+    warp."""
+    from hesaff_tpu_torch.ops.cuda_patches import extract_group
+
+    if not use_blur:
+        return direct_patches(images, img_idx, x, y, s, a11, a21, a22, cfg,
+                              active)
+    direct = torch.zeros_like(active)
+    if mixed:
+        S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
+        direct = fdiv(S.float(), cfg.patch_size) <= cfg.oversample_cutoff
+    pk, ok = extract_group(images, bucket, img_idx, x, y, s, a11, a21, a22,
+                           cfg, active & ~direct)
+    if bool((active & direct).any()):
+        dp, dok = direct_patches(images, img_idx, x, y, s, a11, a21, a22,
+                                 cfg, active & direct)
+        pk = torch.where(direct[:, None, None], dp, pk)
+        ok = torch.where(direct, dok, ok)
+    return pk, ok

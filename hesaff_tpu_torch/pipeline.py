@@ -41,11 +41,28 @@ class ExtractStats(NamedTuple):
     bucket_overflow: int
 
 
+def resolve_device(data, device=None):
+    """Where an entry point runs: `device` if given, else the device of a
+    tensor input, else the GPU.  Without a CUDA device the last case
+    raises; a CPU run is asked for with device="cpu"."""
+    import torch
+
+    if device is not None:
+        return torch.device(device)
+    if isinstance(data, torch.Tensor):
+        return data.device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available: pass device=\"cpu\" "
+                           "to run on the CPU")
+    return torch.device("cuda")
+
+
 def extract(image, cfg=None, device=None, return_stats: bool = False):
     """Hessian-Affine + SIFT extraction on one (H, W) grayscale image.
 
-    device: where to run (default: the tensor's device, or the CPU for
-    numpy input).  Returns Features, or (Features, ExtractStats).
+    device: where to run (default: the tensor's device, or the GPU for
+    numpy input; pass "cpu" to run on the CPU).  Returns Features, or
+    (Features, ExtractStats).
     """
     import torch
 
@@ -53,9 +70,8 @@ def extract(image, cfg=None, device=None, return_stats: bool = False):
     from hesaff_tpu_torch.config import DEFAULT_CONFIG
 
     cfg = cfg or DEFAULT_CONFIG
-    if device is None:
-        device = image.device if isinstance(image, torch.Tensor) else "cpu"
-    image = torch.as_tensor(image, dtype=torch.float32, device=device)
+    image = torch.as_tensor(image, dtype=torch.float32,
+                            device=resolve_device(image, device))
     out = extract_batch(image[None], cfg, return_stats=return_stats)
     if return_stats:
         feats, stats = out

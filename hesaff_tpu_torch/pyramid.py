@@ -67,6 +67,24 @@ def prepare_first_level(image: torch.Tensor, cfg: HesaffConfig):
     return first, pd
 
 
+def scaled_first_level(images: torch.Tensor, cfg: HesaffConfig,
+                       octave: int) -> torch.Tensor:
+    """First level of pyramid octave `octave` for a batch (..., H, W).
+
+    Rebuilds the seed chain of the ladder without DoH responses (the
+    grouped path's pyramid-tail source for octaves deeper than phase A
+    reached).  The result carries blur sigma0 in its own pixels.
+    """
+    cur, _ = prepare_first_level(images, cfg)
+    sig = level_sigmas(cfg)
+    for _ in range(octave):
+        for i, taps in enumerate(ladder_taps(cfg)[:cfg.num_scales]):
+            cur, _ = cuda_blur.blur_doh(cur.contiguous(), taps,
+                                        norm2_of(sig[i + 1] ** 2))
+        cur = half_image(cur)
+    return cur
+
+
 def build_octave(first_level: torch.Tensor, pixel_distance: float,
                  cfg: HesaffConfig) -> Octave:
     """One octave's blur and DoH stacks for (..., H, W) first levels."""

@@ -5,11 +5,20 @@ function (on the CPU, its XLA twin) and the port's counterpart on the
 same arrays, and compares them at the tolerance the test states.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
 # several pytest workers share the host's cores
 torch.set_num_threads(2)
+
+
+def port_cfg(cfg):
+    """The JAX package's HesaffConfig as the port's (same fields)."""
+    from hesaff_tpu_torch.config import HesaffConfig
+
+    return HesaffConfig(**dataclasses.asdict(cfg))
 
 
 def t(a, dtype=None):

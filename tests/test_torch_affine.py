@@ -12,9 +12,10 @@ import pytest
 from hesaff_tpu import affine_shape as jaff
 from hesaff_tpu.config import HesaffConfig
 from hesaff_tpu_torch import affine_shape
-from _torch_parity import assert_affine_parity, smooth_stacks, t
+from _torch_parity import assert_affine_parity, port_cfg, smooth_stacks, t
 
 CFG = HesaffConfig()
+PCFG = port_cfg(CFG)
 
 
 def _case(seed, B, L, H, W, K, margin):
@@ -40,22 +41,22 @@ def test_adapt_flat_matches_jax(seed, B, L, H, W, K, margin, pd,
     stacks, img_idx, src, x, y, s, active = _case(seed, B, L, H, W, K,
                                                   margin)
     if H < 100:
-        assert (affine_shape.sample_window_size(CFG, H, W)
-                < affine_shape.unclamped_window_size(CFG))
+        assert (affine_shape.sample_window_size(PCFG, H, W)
+                < affine_shape.unclamped_window_size(PCFG))
     x, y, s = x * pd, y * pd, s * pd
     ref = jaff.adapt_flat(jnp.asarray(stacks), jnp.asarray(img_idx),
                           jnp.asarray(src), jnp.asarray(x), jnp.asarray(y),
                           jnp.asarray(s), pd, CFG,
                           active=jnp.asarray(active))
     out = affine_shape.adapt_flat(t(stacks), t(img_idx), t(src), t(x),
-                                  t(y), t(s), pd, CFG, active=t(active))
+                                  t(y), t(s), pd, PCFG, active=t(active))
     assert_affine_parity(ref, out, active, min_matched=min_matched)
     assert not np.asarray(out.ok)[~active].any()
 
 
 def test_window_sizes_match_jax():
     for H, W in ((640, 800), (40, 50), (20, 25), (8, 9)):
-        assert (affine_shape.sample_window_size(CFG, H, W)
+        assert (affine_shape.sample_window_size(PCFG, H, W)
                 == jaff.sample_window_size(CFG, H, W))
-    assert (affine_shape.unclamped_window_size(CFG)
+    assert (affine_shape.unclamped_window_size(PCFG)
             == jaff.unclamped_window_size(CFG))

@@ -9,7 +9,9 @@ they run as
 Tolerances are the kernels' (chip_smoke.py states the same): blur atol
 1e-4 and response atol 0.1; the walk exact (ok, cand, cells) with its
 field table at rtol 1e-6 / atol 1e-5; the affine loop under the 2%
-ok/iteration flip budget with U rtol 1e-4 / atol 5e-5.
+ok/iteration flip budget with U rtol 1e-4 / atol 5e-5; the patch kernel
+with equal bad flags and patches at atol 1e-3; SIFT within one step and
+>= 99% exact.
 """
 
 import os
@@ -18,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from hesaff_tpu.config import HesaffConfig
+from hesaff_tpu_torch.config import HesaffConfig
 from _torch_parity import assert_affine_parity, smooth_stacks
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +108,166 @@ def test_extract_on_gpu_matches_cpu(dev):
         assert dd[j] < 0.01
         assert np.abs(gpu.desc[j].astype(int)
                       - cpu.desc[i].astype(int)).max() <= 2
+
+
+def _keypoints(rng, dev, K, B, H, W, smin, smax, margin=10.0):
+    g = lambda a: torch.as_tensor(a, device=dev)
+    d = np.exp(rng.normal(0, 0.25, K)).astype(np.float32)
+    return dict(
+        img_idx=g(rng.integers(0, B, K).astype(np.int32)),
+        x=g(rng.uniform(margin, W - margin, K).astype(np.float32)),
+        y=g(rng.uniform(margin, H - margin, K).astype(np.float32)),
+        s=g(rng.uniform(smin, smax, K).astype(np.float32)),
+        a11=g(d), a21=g(rng.normal(0, 0.4, K).astype(np.float32)),
+        a22=g((1.0 / d).astype(np.float32)),
+        active=g(rng.uniform(size=K) > 0.2))
+
+
+def _kernel_vs_plain(args):
+    from hesaff_tpu_torch.ops import cuda_patches
+
+    before = cuda_patches.LAUNCHES
+    pk, bad = cuda_patches.patches_group(*args)
+    pp, pbad = cuda_patches.patches_group_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_patches.LAUNCHES == before + 1
+    assert torch.equal(bad, pbad)
+    good = ~pbad
+    assert int(good.sum()) >= 8
+    assert float((pk - pp)[good].abs().max()) <= 1e-3
+    assert bool((pk[~args[-2]] == 0).all())
+
+
+@pytest.mark.parametrize("bucket,smin,smax", [
+    (49, 1.6, 4.2), (97, 4.5, 8.8), (193, 9.5, 18.0), (385, 19.0, 36.0)])
+def test_patches_group_kernel(dev, bucket, smin, smax):
+    from hesaff_tpu_torch.ops import cuda_patches
+
+    rng = np.random.default_rng(bucket)
+    B, H, W = 2, 640, 800
+    images = torch.as_tensor(smooth_stacks(rng, B, H, W), device=dev)
+    kp = _keypoints(rng, dev, 96, B, H, W, smin, smax)
+    args, _ = cuda_patches.group_args(
+        images, bucket, *(kp[k] for k in ("img_idx", "x", "y", "s", "a11",
+                                          "a21", "a22")), CFG, kp["active"])
+    _kernel_vs_plain(args)
+
+
+@pytest.mark.parametrize("prev,bsize", [(385, 641), (641, 1025)])
+def test_patches_group_kernel_scaled(dev, prev, bsize):
+    """The pyramid tail: bucket_src 323 (ps 2) and 259 (ps 4) on the
+    first level of the octave that tail_source_plan picks, keypoints
+    near the centre of a 1280x1600 image so that their patches fit."""
+    from hesaff_tpu_torch import dist, pyramid
+    from hesaff_tpu_torch.ops import cuda_patches
+
+    ps, octave, bucket_src = dist.tail_source_plan(bsize, 1.0)
+    rng = np.random.default_rng(bsize)
+    B, H, W = 1, 1280, 1600
+    images = torch.as_tensor(smooth_stacks(rng, B, H, W), device=dev)
+    src = pyramid.scaled_first_level(images, CFG, octave).contiguous()
+    kp = _keypoints(rng, dev, 48, B, H, W, (prev - 1) / (2 * CFG.mr_size),
+                    (bsize - 3) / (2 * CFG.mr_size), margin=0.0)
+    kp["x"] = W / 2 + (kp["x"] / W - 0.5) * 160.0
+    kp["y"] = H / 2 + (kp["y"] / H - 0.5) * 160.0
+    kp["a21"] = 0.25 * kp["a21"]                  # mild shapes: the patch
+    kp["a11"] = 1.0 + 0.25 * (kp["a11"] - 1.0)    # of a 1025 workspace
+    kp["a22"] = 1.0 / kp["a11"]                   # must fit the image
+    names = ("img_idx", "x", "y", "s", "a11", "a21", "a22")
+    before = cuda_patches.LAUNCHES
+    pk, ok = cuda_patches.extract_group_scaled(
+        src, ps, bucket_src, *(kp[k] for k in names), CFG, kp["active"],
+        orig_hw=(H, W))
+    pp, pok = cuda_patches.extract_group_scaled(
+        src.cpu(), ps, bucket_src, *(kp[k].cpu() for k in names), CFG,
+        kp["active"].cpu(), orig_hw=(H, W))
+    assert cuda_patches.LAUNCHES == before + 1
+    assert torch.equal(ok.cpu(), pok)
+    assert int(pok.sum()) >= 8
+    assert float((pk.cpu() - pp)[pok].abs().max()) <= 1e-3
+
+
+def test_sift_kernel(dev):
+    from hesaff_tpu_torch import sift
+    from hesaff_tpu_torch.ops import cuda_sift
+
+    rng = np.random.default_rng(5)
+    p = np.clip(smooth_stacks(rng, 300, 41, 41), 0, 255).astype(np.float32)
+    pt = torch.as_tensor(p, device=dev)
+    before = cuda_sift.LAUNCHES
+    out = cuda_sift.sift_descriptors(pt, CFG)
+    ref = sift.sift_descriptors(pt, CFG)
+    torch.cuda.synchronize()
+    assert cuda_sift.LAUNCHES == before + 1
+    diff = (out - ref).abs()
+    assert float(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.99
+
+
+def test_grouped_on_gpu_matches_cpu(dev):
+    import sys
+
+    from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.ops import cuda_patches, cuda_sift
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
+    import gen_images
+
+    B, H, W = 2, 240, 320
+    imgs = np.stack([
+        gen_images.synth_image(W, H, seed=s).astype(np.float32).mean(-1)
+        for s in range(B)])
+    groups = dist.default_group_spec(H, W, CFG, per_image_cap=512, batch=B)
+    before = (cuda_patches.LAUNCHES, cuda_sift.LAUNCHES)
+    gpu = dist.extraction_step_grouped(imgs, CFG, groups, device=dev)
+    cpu = dist.extraction_step_grouped(imgs, CFG, groups, device="cpu")
+    assert cuda_patches.LAUNCHES > before[0]
+    assert cuda_sift.LAUNCHES == before[1] + 1
+    gv, cv = gpu.valid.cpu(), cpu.valid
+    assert abs(int(gv.sum()) - int(cv.sum())) <= 1 and int(cv.sum()) > 50
+    assert int(gpu.overflow) == int(cpu.overflow) == 0
+    gx, gy = gpu.x.cpu()[gv].numpy(), gpu.y.cpu()[gv].numpy()
+    gd = gpu.desc.cpu()[gv].numpy().astype(int)
+    cd = cpu.desc[cv].numpy().astype(int)
+    for i, (x, y) in enumerate(zip(cpu.x[cv].numpy(), cpu.y[cv].numpy())):
+        j = int(np.argmin(np.hypot(gx - x, gy - y)))
+        assert np.hypot(gx[j] - x, gy[j] - y) < 0.01
+        assert np.abs(gd[j] - cd[i]).max() <= 2
+
+
+@pytest.mark.parametrize("entry", ["extract", "grouped"])
+def test_upscale_direct_branch_on_gpu_matches_cpu(dev, entry):
+    """Under upscale_input small keypoints take the direct warp beside
+    the patch kernel (extract_batch's mixed bucket, the grouped path's
+    direct branch)."""
+    import dataclasses
+
+    from hesaff_tpu_torch import dist, extract
+
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "data",
+                             "synth_200x160.npz"))
+    img = d["gray"]
+    cfg = dataclasses.replace(CFG, upscale_input=True)
+
+    def run(device):
+        if entry == "extract":
+            f = extract(img, cfg, device=device)
+            return f.x, f.y, f.s, f.desc
+        groups = dist.default_group_spec(*img.shape, cfg, per_image_cap=512)
+        o = dist.extraction_step_grouped(img[None], cfg, groups,
+                                         device=device)
+        v = o.valid.cpu()
+        assert int(o.overflow) == 0
+        return tuple(getattr(o, k).cpu()[v].numpy()
+                     for k in ("x", "y", "s", "desc"))
+
+    gx, gy, gs, gd = run(dev)
+    cx, cy, cs, cd = run("cpu")
+    S = 2 * np.ceil(cs * cfg.mr_size) + 1
+    assert (S / cfg.patch_size <= cfg.oversample_cutoff).any()
+    assert abs(len(gx) - len(cx)) <= 1 and len(cx) > 10
+    for i in range(len(cx)):
+        dd = np.hypot(gx - cx[i], gy - cy[i])
+        j = int(dd.argmin())
+        assert dd[j] < 0.01
+        assert np.abs(gd[j].astype(int) - cd[i].astype(int)).max() <= 2

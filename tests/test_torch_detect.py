@@ -18,9 +18,10 @@ from hesaff_tpu import pyramid as jpyr
 from hesaff_tpu.config import HesaffConfig
 from hesaff_tpu_torch import detect
 from hesaff_tpu_torch.ops import cuda_detect
-from _torch_parity import n, smooth_stacks, t
+from _torch_parity import n, port_cfg, smooth_stacks, t
 
 CFG = HesaffConfig()
+PCFG = port_cfg(CFG)
 
 
 @pytest.mark.parametrize("H,W", [(200, 240), (61, 45)])
@@ -38,7 +39,7 @@ def test_plain_walk_matches_jax_dense(H, W):
                + n(jdet._shift_rep(blur, 0, 1)))
 
     ok, cell, tab, cand = cuda_detect.detect_walk(
-        *(t(a)[None] for a in (low, cur, high, blur)), CFG)
+        *(t(a)[None] for a in (low, cur, high, blur)), PCFG)
     ok, cell, tab, cand = n(ok[0]), n(cell[0]), n(tab[0]), n(cand[0])
 
     assert ok_ref.sum() > (20 if H >= 100 else 0)
@@ -60,7 +61,7 @@ def test_octave_detection_matches_jax(golden_small):
     ref = jax.tree.map(np.asarray, jdet.detect_octave_batch_dense(
         o.resps, o.blurs, sig, 1.0, CFG, octave=0))
     out = detect.detect_octave_batch(t(n(o.resps)), t(n(o.blurs)), sig,
-                                     1.0, CFG, octave=0)
+                                     1.0, PCFG, octave=0)
     out = {k: n(v) for k, v in out.items()}
 
     assert ref["ok"].sum() > 50
@@ -87,4 +88,4 @@ def test_dedup_keeps_first_in_scan_order():
 def test_sparse_size_raises():
     big = torch.zeros((1, 1, 1, 1)).expand(1, 5, 2048, 4096)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        detect.detect_octave_batch(big, big, [1.0] * 5, 1.0, CFG)
+        detect.detect_octave_batch(big, big, [1.0] * 5, 1.0, PCFG)

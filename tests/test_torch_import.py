@@ -1,10 +1,14 @@
-"""The PyTorch port imports no JAX, and a CPU run launches no kernel."""
+"""The PyTorch port imports neither JAX nor the JAX package, a CPU run
+launches no kernel, and an entry point given no device runs on the GPU
+or raises."""
 
 import os
 import subprocess
 import sys
 
 import numpy as np
+import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -12,12 +16,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_without_jax():
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"       # any `import jax` now fails
+        "sys.modules['jax'] = None\n"         # any `import jax` now fails
+        "sys.modules['hesaff_tpu'] = None\n"  # and any import of the package
         "import hesaff_tpu_torch, hesaff_tpu_torch.batch\n"
-        "from hesaff_tpu_torch import params, patches, sift\n"
+        "from hesaff_tpu_torch import dist, params, patches, sift\n"
         "from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, "
-        "cuda_build, cuda_detect\n"
+        "cuda_build, cuda_detect, cuda_patches, cuda_sift, masks\n"
         "assert 'jaxlib' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m.startswith('hesaff_tpu.')]\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -29,11 +35,21 @@ def test_port_imports_without_jax():
 
 def test_cpu_run_launches_no_kernel(golden_small):
     from hesaff_tpu_torch import extract
-    from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, cuda_detect
+    from hesaff_tpu_torch.ops import (cuda_affine, cuda_blur, cuda_detect,
+                                      cuda_patches, cuda_sift)
 
-    mods = (cuda_blur, cuda_detect, cuda_affine)
+    mods = (cuda_blur, cuda_detect, cuda_affine, cuda_patches, cuda_sift)
     before = [m.LAUNCHES for m in mods]
-    feats = extract(golden_small["gray"][:96, :80])
+    feats = extract(golden_small["gray"][:96, :80], device="cpu")
     assert feats.n > 0
-    assert [m.LAUNCHES for m in mods] == before == [0, 0, 0]
+    assert [m.LAUNCHES for m in mods] == before == [0] * len(mods)
     assert np.isfinite(feats.x).all()
+
+
+def test_extract_without_device_needs_a_gpu():
+    from hesaff_tpu_torch import extract
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: extract() runs on it")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        extract(np.zeros((64, 64), np.float32))

@@ -17,9 +17,10 @@ from hesaff_tpu import patches as jpat
 from hesaff_tpu import sift as jsift
 from hesaff_tpu.config import HesaffConfig
 from hesaff_tpu_torch import patches, sift
-from _torch_parity import n, smooth_stacks, t
+from _torch_parity import n, port_cfg, smooth_stacks, t
 
 CFG = HesaffConfig()
+PCFG = port_cfg(CFG)
 
 
 @pytest.mark.parametrize("bucket,smin,smax,shear,cfg", [
@@ -51,7 +52,8 @@ def test_extract_bucket_batch_matches_jax(bucket, smin, smax, shear, cfg):
         jnp.asarray(images), bucket, *(jnp.asarray(a) for a in args), cfg,
         active=jnp.asarray(active))
     pk, ok = patches.extract_bucket_batch(
-        t(images), bucket, *(t(a) for a in args), cfg, active=t(active))
+        t(images), bucket, *(t(a) for a in args), port_cfg(cfg),
+        active=t(active))
     ro = n(ok_ref) & active
     np.testing.assert_array_equal(n(ok), ro)
     assert ro.sum() >= 8
@@ -64,7 +66,7 @@ def test_bucket_helpers_match_jax():
                                   jpat.patch_image_size(s, CFG.mr_size))
     for w in (3, 25, 26, 2049, 2050):
         assert patches.bucket_for(w) == jpat.bucket_for(w)
-    assert patches._min_workspace(CFG) == jpat._min_workspace(CFG)
+    assert patches._min_workspace(PCFG) == jpat._min_workspace(CFG)
     sig = t(np.float32([0.7, 2.2, 9.1]))
     ks = t(np.int32([5, 15, 55]))
     np.testing.assert_allclose(
@@ -76,7 +78,7 @@ def test_bucket_helpers_match_jax():
 
 def test_sift_on_golden_patches(golden_small):
     gp = golden_small["patches"].reshape(-1, 41, 41)
-    mine = n(sift.sift_descriptors(t(gp), CFG))
+    mine = n(sift.sift_descriptors(t(gp), PCFG))
     diff = np.abs(mine - golden_small["descriptors"])
     assert diff.max() <= 1
     assert (diff == 0).mean() >= 0.999
@@ -87,7 +89,7 @@ def test_sift_matches_jax_on_random_patches():
     p = np.clip(smooth_stacks(rng, 150, 41, 41), 0, 255).astype(np.float32)
     p[0] = 55.0                              # flat: photometric no-op
     ref = np.asarray(jsift.sift_descriptors(jnp.asarray(p), CFG))
-    out = n(sift.sift_descriptors(t(p), CFG))
+    out = n(sift.sift_descriptors(t(p), PCFG))
     fin = np.isfinite(ref).all(axis=1)
     np.testing.assert_array_equal(np.isfinite(out).all(axis=1), fin)
     diff = np.abs(ref[fin] - out[fin])

@@ -17,14 +17,16 @@ from hesaff_tpu.sift_io import ellipse_abc
 from hesaff_tpu_torch import extract, extract_batch, params
 from hesaff_tpu_torch.ops.blur import gaussian_taps
 from tests.conftest import parse_sift_bytes
-from _torch_parity import n
+from _torch_parity import n, port_cfg
 
 CFG = HesaffConfig()
+PCFG = port_cfg(CFG)
 
 
 @pytest.fixture(scope="module")
 def port_small(golden_small):
-    return extract(golden_small["gray"], CFG, return_stats=True)
+    return extract(golden_small["gray"], PCFG, device="cpu",
+                   return_stats=True)
 
 
 def test_end_to_end_matches_oracle(golden_small, port_small):
@@ -74,8 +76,8 @@ def test_end_to_end_matches_jax(golden_small, port_small):
 
 @pytest.mark.parametrize("shape", [(64, 64), (13, 13)])
 def test_flat_or_tiny_image_gives_no_features(shape):
-    feats, stats = extract(np.full(shape, 9.0, np.float32), CFG,
-                           return_stats=True)
+    feats, stats = extract(np.full(shape, 9.0, np.float32), PCFG,
+                           device="cpu", return_stats=True)
     assert feats.n == 0 and stats.num_candidates == 0
     assert feats.desc.shape == (0, 128)
 
@@ -83,7 +85,7 @@ def test_flat_or_tiny_image_gives_no_features(shape):
 def test_batch_of_two_matches_single_extraction(golden_small, port_small):
     g = golden_small["gray"]
     out = extract_batch(torch.as_tensor(np.stack([g, g[:, ::-1].copy()])),
-                        CFG)
+                        PCFG)
     first = out[0]
     np.testing.assert_array_equal(first.x, port_small[0].x)
     np.testing.assert_array_equal(first.desc, port_small[0].desc)
@@ -94,7 +96,7 @@ def test_params_tables_equal_jax_side():
     from hesaff_tpu import pyramid as jpyr
     from hesaff_tpu.ops.blur import gaussian_taps as jtaps
 
-    tb = params.tables(CFG, "cpu")
+    tb = params.tables(PCFG, "cpu")
     np.testing.assert_array_equal(n(tb["smm_mask"]),
                                   masks.smm_gauss_mask(CFG.smm_window_size))
     np.testing.assert_array_equal(n(tb["circ_mask"]),

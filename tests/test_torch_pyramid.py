@@ -15,19 +15,20 @@ from hesaff_tpu.config import HesaffConfig
 from hesaff_tpu_torch import pyramid
 from hesaff_tpu_torch.ops import cuda_blur
 from hesaff_tpu_torch.ops.blur import gaussian_taps
-from _torch_parity import n, t
+from _torch_parity import n, port_cfg, t
 
 CFG = HesaffConfig()
+PCFG = port_cfg(CFG)
 
 
 def test_build_octave_matches_jax(golden_small):
     gray = golden_small["gray"]
     jfirst, jpd = jpyr.prepare_first_level(jnp.asarray(gray), CFG)
-    first, pd = pyramid.prepare_first_level(t(gray), CFG)
+    first, pd = pyramid.prepare_first_level(t(gray), PCFG)
     assert pd == jpd
     np.testing.assert_allclose(n(first), n(jfirst), atol=1e-4)
     jo = jpyr.build_octave(jnp.asarray(n(jfirst)), jpd, CFG)
-    o = pyramid.build_octave(t(n(jfirst)), pd, CFG)
+    o = pyramid.build_octave(t(n(jfirst)), pd, PCFG)
     assert o.sigmas == jo.sigmas
     np.testing.assert_allclose(n(o.blurs), n(jo.blurs), atol=1e-4)
     np.testing.assert_allclose(n(o.resps), n(jo.resps), atol=0.05)
@@ -36,10 +37,10 @@ def test_build_octave_matches_jax(golden_small):
 
 
 def test_three_octave_ladder_matches_oracle(golden_mid):
-    cur, pd = pyramid.prepare_first_level(t(golden_mid["gray"]), CFG)
+    cur, pd = pyramid.prepare_first_level(t(golden_mid["gray"]), PCFG)
     np.testing.assert_allclose(n(cur), golden_mid["firstLevel"], atol=2e-4)
     for octave in range(3):
-        o = pyramid.build_octave(cur, pd, CFG)
+        o = pyramid.build_octave(cur, pd, PCFG)
         for k in range(CFG.num_scales + 2):
             key = f"oct{octave}_blur{k}"
             if key in golden_mid:
