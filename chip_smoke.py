@@ -3,29 +3,34 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from hesaff_tpu_torch/csrc, holds each
-against its plain PyTorch version at the main path's shapes (phase 2),
-runs extract() on the 200x160 oracle golden (phase 3), and drives both
-batch entry points on 16 synthetic 800x640 images (the bench imagery of
+Builds the CUDA kernels from hesaff_tpu_torch/csrc (phase 1), holds each
+of the six against its plain PyTorch version at the main path's shapes
+(phase 2; K3 on the octave-0 planes of phase 6's images), runs
+extract() on the 200x160 oracle golden (phase 3), and drives both batch
+entry points on 16 synthetic 800x640 images (the bench imagery of
 bench.py): extract_batch (phase 4) and the grouped serving path
 dist.extraction_step_grouped with bench.py's group table (phase 5),
 each checked against a CPU run of the plain versions on image 0.  Phase
 5 also times 7 more batches and profiles one (torch.profiler): the
 device's busy and idle share of the batch, device ms by kernel, and the
-host ms of each stage's span in dist.py.  Exits
-non-zero on any failed phase; on success the last line of standard
-output is
+host ms of each stage's span in dist.py.  Phase 6 runs extract_batch on
+two 4032x3024 images, the full frame of a 12 MP camera, whose octave 0
+(2^23 px or more) takes the sparse detection path through K3, and gates
+image 0 against a CPU run.  Exits non-zero on any failed phase; on
+success the last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-and the line before it holds the per-kernel record: launches on the
-serving path (phase 5; phase 4's beside them), max abs error against
-the plain version, median ms of the kernel and of the plain version,
-and the bound: the larger of the bytes it must move over 3.35 TB/s and
-the float32 operations its function needs over 67 TFLOP/s (H100 SXM
-data sheet), both counted from this run's inputs.  No single PyTorch call computes any of
-the five functions, so library_ms is null.  There is no CPU mode:
-without a CUDA device the script exits with an error.
+and the line before it holds the per-kernel record: launches in one
+phase-6 call (every kernel runs there) and in phases 4, 5 and 6, max
+abs error against the plain version, the kernel's and the plain
+version's ms (one pair of CUDA events around back-to-back launches, 20
+of the kernel and 3 of the plain version, after a warm-up), and the
+bound: the larger of the bytes it must move over 3.35 TB/s and the
+float32 operations its function needs over 67 TFLOP/s (H100 SXM data
+sheet), both counted from this run's inputs.  No single PyTorch call
+computes any of the six functions, so library_ms is null.  There is no
+CPU mode: without a CUDA device the script exits with an error.
 """
 
 from __future__ import annotations
@@ -44,6 +49,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 BATCH, HEIGHT, WIDTH = 16, 640, 800
+# phase 6: 12 MP frames, each a mosaic of TILES_Y x TILES_X bench-sized
+# tiles cropped to LARGE_H x LARGE_W, seeds from LARGE_SEED on
+LARGE_BATCH, LARGE_H, LARGE_W = 2, 3024, 4032
+TILES_Y, TILES_X, LARGE_SEED = 5, 6, 1000
 
 KERNELS = (
     # name, source, TPU kernel it replaces
@@ -51,6 +60,8 @@ KERNELS = (
      "hesaff_tpu/ops/pallas_blur.py:196"),
     ("detect_walk", "hesaff_tpu_torch/csrc/detect_walk.cu",
      "hesaff_tpu/ops/pallas_detect.py:324"),
+    ("detect_maps", "hesaff_tpu_torch/csrc/detect_walk.cu",
+     "hesaff_tpu/ops/pallas_detect.py:139"),
     ("affine_adapt", "hesaff_tpu_torch/csrc/affine_adapt.cu",
      "hesaff_tpu/ops/pallas_affine.py:474"),
     ("patches_group", "hesaff_tpu_torch/csrc/patches_group.cu",
@@ -75,22 +86,22 @@ def check(cond: bool, what: str) -> None:
         log(f"FAIL: {what}")
 
 
-def timed(fn, reps: int = 10) -> float:
-    """Median milliseconds of fn() on the current stream (CUDA events)."""
+def timed(fn, reps: int = 20) -> float:
+    """Milliseconds of one fn() on the current stream: after a warm-up,
+    one pair of CUDA events around `reps` back-to-back calls, so the
+    host's enqueue gaps between calls hide behind the device's work."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -106,13 +117,36 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_modules() -> dict:
+def _counters() -> dict:
+    """Each kernel's launch counter: (wrapper module, attribute)."""
     from hesaff_tpu_torch.ops import (cuda_affine, cuda_blur, cuda_detect,
                                       cuda_patches, cuda_sift)
 
-    return {"blur_doh": cuda_blur, "detect_walk": cuda_detect,
-            "affine_adapt": cuda_affine, "patches_group": cuda_patches,
-            "sift_desc": cuda_sift}
+    return {"blur_doh": (cuda_blur, "LAUNCHES"),
+            "detect_walk": (cuda_detect, "LAUNCHES"),
+            "detect_maps": (cuda_detect, "MAPS_LAUNCHES"),
+            "affine_adapt": (cuda_affine, "LAUNCHES"),
+            "patches_group": (cuda_patches, "LAUNCHES"),
+            "sift_desc": (cuda_sift, "LAUNCHES")}
+
+
+def reset_counts() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def check_dense_launches(launches: dict, what: str) -> None:
+    """An 800x640 batch runs every kernel but K3: its octaves are all
+    under 2^23 px, so they take the dense walk."""
+    for k, v in launches.items():
+        if k == "detect_maps":
+            check(v == 0, f"{what}: K3 launched {v} times on the dense path")
+        else:
+            check(v > 0, f"{what}: kernel {k} never launched on the path")
 
 
 def bench_config():
@@ -133,13 +167,23 @@ def _synth(seed: int) -> np.ndarray:
             .astype(np.float32).mean(axis=-1))
 
 
-def bench_images(batch: int) -> np.ndarray:
-    """bench.py's imagery (synthetic 800x640, seeds 0..batch-1,
-    channel-mean gray), made in worker processes."""
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(
-            min(batch, os.cpu_count() or 1), mp_context=ctx) as ex:
-        return np.stack(list(ex.map(_synth, range(batch))))
+def start_images(ex):
+    """Futures of the imagery, made in worker processes: bench.py's 16
+    800x640 images (seeds 0..15, channel-mean gray) and the tiles of
+    phase 6's mosaics (seeds LARGE_SEED on, unused by bench.py)."""
+    n_tiles = LARGE_BATCH * TILES_Y * TILES_X
+    return ([ex.submit(_synth, s) for s in range(BATCH)],
+            [ex.submit(_synth, LARGE_SEED + k) for k in range(n_tiles)])
+
+
+def gather_images(futures):
+    bench, tiles = futures
+    bench = np.stack([f.result() for f in bench])
+    tiles = np.stack([f.result() for f in tiles]).reshape(
+        LARGE_BATCH, TILES_Y, TILES_X, HEIGHT, WIDTH)
+    large = tiles.transpose(0, 1, 3, 2, 4).reshape(
+        LARGE_BATCH, TILES_Y * HEIGHT, TILES_X * WIDTH)
+    return bench, np.ascontiguousarray(large[:, :LARGE_H, :LARGE_W])
 
 
 def card_name_and_limit() -> str:
@@ -153,12 +197,14 @@ def card_name_and_limit() -> str:
 def phase_build() -> None:
     from hesaff_tpu_torch.ops import cuda_build
 
+    sources = sorted({os.path.basename(k[1])[:-3] for k in KERNELS})
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as ex:
-        list(ex.map(cuda_build.library, [k[0] for k in KERNELS]))
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        list(ex.map(cuda_build.library, sources))
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s wall for "
-        f"{len(KERNELS)} kernels (sm_90a, --fmad=false)")
-    for name, *_ in KERNELS:
+        f"{len(sources)} sources, {len(KERNELS)} kernels (sm_90a, "
+        "--fmad=false)")
+    for name in sources:
         info = cuda_build.BUILD_INFO[name]
         log(f"  {name}: nvcc {info['seconds']:.2f} s; "
             + " | ".join(s.strip() for s in info["ptxas"].splitlines()))
@@ -189,7 +235,7 @@ def phase_kernels(images, cfg, dev) -> dict:
     check(eb <= 1e-4, f"blur_doh blur max err {eb} > 1e-4")
     check(er <= 0.1, f"blur_doh resp max err {er} > 0.1")
     ms = timed(lambda: cuda_blur.blur_doh(first, taps, norm2))
-    pms = timed(lambda: cuda_blur.blur_doh_plain(first, taps, norm2))
+    pms = timed(lambda: cuda_blur.blur_doh_plain(first, taps, norm2), 3)
     log(f"phase 2 blur_doh {tuple(first.shape)} k={len(taps)}: blur err "
         f"{eb:.3g} (atol 1e-4), resp err {er:.3g} (atol 0.1); kernel "
         f"{ms:.3f} ms, plain {pms:.3f} ms")
@@ -355,6 +401,46 @@ def phase_group_kernels(images, cfg, rec) -> None:
         f"{pms:.3f} ms")
 
 
+def phase_maps_kernel(large, cfg, rec) -> None:
+    """K3 against its plain version on octave 0 of phase 6's images,
+    every detection level (the sparse path's shapes)."""
+    import torch
+
+    from hesaff_tpu_torch import pyramid
+    from hesaff_tpu_torch.ops import cuda_detect
+
+    first, pd = pyramid.prepare_first_level(large, cfg)
+    o = pyramid.build_octave(first, pd, cfg)
+    del first
+    e3, ms, pms, b3, f3, bit_equal = 0.0, 0.0, 0.0, 0, 0, True
+    for l in range(1, cfg.num_scales + 1):
+        args = (o.resps[:, l - 1], o.resps[:, l], o.resps[:, l + 1])
+        maps, nan_flag, edge, mask = cuda_detect.detect_maps(*args, cfg)
+        pmaps, pnan, pedge, pmask = cuda_detect.detect_maps_plain(*args, cfg)
+        check(bool(torch.equal(mask, pmask)), f"detect_maps mask, level {l}")
+        check(bool(torch.equal(nan_flag, pnan)), f"detect_maps nan, level {l}")
+        check(bool(torch.equal(edge, pedge)), f"detect_maps edge, level {l}")
+        d = (maps[pmask] - pmaps[pmask]).abs()
+        close = d <= 1e-5 + 1e-6 * pmaps[pmask].abs()
+        check(bool(close.all()), f"detect_maps maps where mask, level {l}")
+        e3 = max(e3, float(d.max()) if d.numel() else 0.0)
+        bit_equal &= bool(torch.equal(maps, pmaps))
+        # read three planes, write the maps and three byte flags; per
+        # pixel ~140 operations: 52 NMS compares, 30 for the differences,
+        # ~35 for the pivoted solve, ~20 for val, the edge score and flags
+        b3 += nbytes(*args, maps, nan_flag, edge, mask)
+        f3 += 140 * o.resps[:, l].numel()
+        del maps, nan_flag, edge, mask, pmaps, pnan, pedge, pmask, d, close
+        ms += timed(lambda: cuda_detect.detect_maps(*args, cfg))
+        pms += timed(lambda: cuda_detect.detect_maps_plain(*args, cfg), 3)
+    log(f"phase 2 detect_maps 3 x {tuple(o.resps[:, 1].shape)}: mask/nan/"
+        f"edge equal, maps max err where mask {e3:.3g} (rtol 1e-6, atol "
+        f"1e-5), all maps bit-equal: {bit_equal}; kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms (3 levels)")
+    rec["detect_maps"] = dict(max_abs_err=e3, ms=ms, plain_ms=pms,
+                              **bound(b3, f3))
+
+
 def _ellipse(f, mr_size):
     a11, a12, a21, a22 = (np.asarray(v, np.float64)
                           for v in (f.a11, f.a12, f.a21, f.a22))
@@ -435,17 +521,15 @@ def phase_batch(images_np, cfg, dev) -> dict:
 
     from hesaff_tpu_torch import extract_batch
 
-    mods = kernel_modules()
     images = torch.as_tensor(images_np, device=dev)
     extract_batch(images, cfg)                        # warm-up
     torch.cuda.synchronize()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     feats, stats = extract_batch(images, cfg, return_stats=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    launches = read_counts()
     n_desc = sum(f.n for f in feats)
     finite = all(np.isfinite(np.stack([f.x, f.y, f.s, f.a11, f.a12, f.a21,
                                        f.a22, f.response])).all()
@@ -454,8 +538,7 @@ def phase_batch(images_np, cfg, dev) -> dict:
     check(all(f.desc.dtype == np.uint8 and f.desc.shape == (f.n, 128)
               for f in feats), "batch: descriptor shape/type")
     check(n_desc > 0, "batch: no descriptors")
-    for k, v in launches.items():
-        check(v > 0, f"batch: kernel {k} never launched on the main path")
+    check_dense_launches(launches, "batch")
     log(f"phase 4 batch {BATCH}x{HEIGHT}x{WIDTH}: {n_desc} descriptors, "
         f"wall {wall * 1000:.1f} ms/batch after one warm-up; funnel: "
         f"candidates {stats.num_candidates}, keypoints "
@@ -487,19 +570,17 @@ def phase_grouped(images_np, cfg, dev) -> dict:
 
     from hesaff_tpu_torch import dist
 
-    mods = kernel_modules()
     groups = dist.default_group_spec(HEIGHT, WIDTH, cfg, per_image_cap=1024,
                                      batch=BATCH)
     images = torch.as_tensor(images_np, device=dev)
     dist.extraction_step_grouped(images, cfg, groups)     # warm-up
     torch.cuda.synchronize()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = dist.extraction_step_grouped(images, cfg, groups)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    launches = read_counts()
     n_valid = int(out.valid.sum())
     overflow = int(out.overflow)
     v = out.valid
@@ -510,8 +591,7 @@ def phase_grouped(images_np, cfg, dev) -> dict:
           == (v.numel(), 128), "grouped: descriptor shape/type")
     check(n_valid > 0, "grouped: no descriptors")
     check(overflow == 0, f"grouped: overflow {overflow}")
-    for k, n in launches.items():
-        check(n > 0, f"grouped: kernel {k} never launched on the path")
+    check_dense_launches(launches, "grouped")
     log(f"phase 5 grouped {BATCH}x{HEIGHT}x{WIDTH}, groups {groups}: "
         f"{n_valid} valid descriptors in {v.numel()} slots, overflow "
         f"{overflow}, wall {wall * 1000:.1f} ms/batch after one warm-up, "
@@ -534,6 +614,85 @@ def phase_grouped(images_np, cfg, dev) -> dict:
     log(f"  CPU plain grouped run of image 0: "
         f"{time.perf_counter() - t0:.1f} s")
     _gate(_image_features(out, 0), _image_features(cpu, 0), "phase 5")
+    return launches
+
+
+def phase_large(large_np, cfg, dev) -> dict:
+    """extract_batch on two 12 MP frames: octave 0 takes the sparse
+    path (K3 once per detection level for the whole batch), octaves 1
+    and up the dense walk (K2).  Overflow of the capacities is counted
+    and printed; image 0 is gated against a CPU run of the plain
+    versions, with equal candidate and overflow counts."""
+    import torch
+
+    from hesaff_tpu_torch import extract_batch
+
+    B, H, W = large_np.shape
+    images = torch.as_tensor(large_np, device=dev)
+    extract_batch(images, cfg)                        # warm-up
+    torch.cuda.synchronize()
+    walls, counts = [], []
+    for _ in range(3):
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        feats, stats = extract_batch(images, cfg, return_stats=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = counts[0]
+    check(all(c == launches for c in counts),
+          f"large: launches differ between calls {counts}")
+    for k, v in launches.items():
+        check(v > 0, f"large: kernel {k} never launched on the path")
+    check(launches["detect_maps"] == cfg.num_scales,
+          f"large: K3 launched {launches['detect_maps']} times, not once "
+          "per level of octave 0")
+    check(launches["detect_walk"] % cfg.num_scales == 0,
+          f"large: K2 launched {launches['detect_walk']} times")
+    finite = all(np.isfinite(np.stack([f.x, f.y, f.s, f.a11, f.a12, f.a21,
+                                       f.a22, f.response])).all()
+                 for f in feats)
+    check(finite, "large: non-finite keypoint fields")
+    check(all(f.desc.dtype == np.uint8 and f.desc.shape == (f.n, 128)
+              and f.n > 0 for f in feats), "large: descriptor shape/type")
+    log(f"phase 6 large {B}x{H}x{W}: {sum(f.n for f in feats)} descriptors, "
+        f"wall ms {[round(w, 3) for w in walls]}, median "
+        f"{float(np.median(walls)):.3f} after one warm-up; peak allocated "
+        f"{peak:.3f} GiB; funnel: candidates {stats.num_candidates}, "
+        f"keypoints {stats.num_keypoints}, affine {stats.num_affine}, "
+        f"described {stats.num_described}; overflow: candidate "
+        f"{stats.candidate_overflow}, bucket {stats.bucket_overflow}; "
+        f"launches per call {launches}")
+
+    per_image = []
+    for b in range(B):
+        torch.cuda.reset_peak_memory_stats()
+        fb, sb = extract_batch(images[b:b + 1], cfg, return_stats=True)
+        check(fb[0].n == feats[b].n,
+              f"large: image {b} alone {fb[0].n} != in batch {feats[b].n}")
+        per_image.append(sb)
+        log(f"  image {b} alone: {fb[0].n} descriptors, n_cand "
+            f"{sb.num_candidates}, candidate_overflow "
+            f"{sb.candidate_overflow}, bucket_overflow {sb.bucket_overflow}, "
+            f"peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    del images
+
+    t0 = time.perf_counter()
+    cpu, cs = extract_batch(large_np[:1], cfg, return_stats=True,
+                            device="cpu")
+    log(f"  CPU plain run of image 0: {time.perf_counter() - t0:.1f} s; "
+        f"n_cand {cs.num_candidates}, candidate_overflow "
+        f"{cs.candidate_overflow}, bucket_overflow {cs.bucket_overflow}")
+    s0 = per_image[0]
+    check(s0.num_candidates == cs.num_candidates,
+          f"large: n_cand gpu {s0.num_candidates} cpu {cs.num_candidates}")
+    check(s0.candidate_overflow == cs.candidate_overflow,
+          f"large: candidate_overflow gpu {s0.candidate_overflow} cpu "
+          f"{cs.candidate_overflow}")
+    _gate(feats[0], cpu[0], "phase 6")
     return launches
 
 
@@ -604,29 +763,46 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     card = card_name_and_limit()
     log(f"phase 1 device: {card}")
-    phase_build()
 
     t0 = time.perf_counter()
-    images_np = bench_images(BATCH)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count() or 1, mp_context=ctx) as ex:
+        futures = start_images(ex)            # made while nvcc builds
+        try:
+            phase_build()
+            images_np, large_np = gather_images(futures)
+        except BaseException:
+            ex.shutdown(cancel_futures=True)
+            raise
     check(images_np.shape == (BATCH, HEIGHT, WIDTH),
           f"bench imagery shape {images_np.shape}")
-    log(f"  bench imagery: {images_np.shape} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    check(large_np.shape == (LARGE_BATCH, LARGE_H, LARGE_W),
+          f"large imagery shape {large_np.shape}")
+    log(f"  imagery: bench {images_np.shape}, large {large_np.shape} "
+        f"({LARGE_BATCH * TILES_Y * TILES_X} tiles) in "
+        f"{time.perf_counter() - t0:.1f} s with the build")
     cfg = bench_config()
     images = torch.as_tensor(images_np, device=dev)
     rec = phase_kernels(images, cfg, dev)
     phase_group_kernels(images, cfg, rec)
     del images
+    large = torch.as_tensor(large_np, device=dev)
+    phase_maps_kernel(large, cfg, rec)
+    del large
+    torch.cuda.empty_cache()
     phase_golden(dev)
-    batch_launches = phase_batch(images_np, cfg, dev)
-    launches = phase_grouped(images_np, cfg, dev)
+    launches = {"4": phase_batch(images_np, cfg, dev),
+                "5": phase_grouped(images_np, cfg, dev),
+                "6": phase_large(large_np, cfg, dev)}
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed")
         return 1
     log(card)
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=launches[name],
-                    launches_extract_batch=batch_launches[name], **rec[name])
+                    launches=launches["6"][name],
+                    **{f"launches_phase{p}": c[name]
+                       for p, c in launches.items()}, **rec[name])
                for name, src, rep in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

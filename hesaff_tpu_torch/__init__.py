@@ -14,9 +14,10 @@ Public API
                      DenseFeatures of tensors
 
 Entry points run on the GPU unless given a CPU tensor or
-device="cpu".  A CPU tensor runs every stage as plain PyTorch; a CUDA
-tensor runs the five kernels of ``ops/cuda_*.py``, which are built from
-``csrc/`` at first use.
+device="cpu", for images of any size (octaves of 2^23 px or more take
+the sparse detection path).  A CPU tensor runs every stage as plain
+PyTorch; a CUDA tensor runs the six kernels of ``ops/cuda_*.py``, which
+are built from ``csrc/`` at first use.
 """
 
 from hesaff_tpu_torch.batch import extract_batch

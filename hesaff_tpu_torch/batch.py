@@ -2,8 +2,9 @@
 
 Port of ``hesaff_tpu/batch.py`` without padded (valid_hw) mode.
 
-Phase A (device): for every octave, the blur + DoH ladder, the dense
-detection walk, and the affine adaptation of the cross-image flattened
+Phase A (device): for every octave, the blur + DoH ladder, the
+detection walk (dense, or sparse for octaves of 2^23 px or more), and
+the affine adaptation of the cross-image flattened
 keypoints; then the rectified frames.  Phase B: the keypoint arrays go
 to the host, accepted keypoints of the whole batch are grouped by patch
 workspace bucket, each bucket's patches are extracted on the device
@@ -20,7 +21,7 @@ import torch
 
 from hesaff_tpu_torch.affine_shape import adapt_flat
 from hesaff_tpu_torch.config import DEFAULT_CONFIG, HesaffConfig
-from hesaff_tpu_torch.detect import detect_octave_batch
+from hesaff_tpu_torch.detect import detect_octave_batch, detect_octave_sparse
 from hesaff_tpu_torch.ops.cuda_sift import sift_descriptors
 from hesaff_tpu_torch.ops.linalg import rectify_up_is_up
 from hesaff_tpu_torch.patches import (BUCKET_SIZES, bucket_for,
@@ -28,6 +29,19 @@ from hesaff_tpu_torch.patches import (BUCKET_SIZES, bucket_for,
 from hesaff_tpu_torch.pipeline import ExtractStats, Features, resolve_device
 from hesaff_tpu_torch.pyramid import (build_octave, level_sigmas,
                                       prepare_first_level)
+
+
+def _detect_one_octave(resps, blurs, sig, pd: float, cfg: HesaffConfig,
+                       octave: int = 0) -> dict:
+    """Per-image detection of one octave through detect_level, the
+    reference form of the oracle tests (JAX's batch._detect_one_octave).
+
+    resps, blurs: (L, H, W).  Returns the compacted keypoint dict of
+    (affine capacity,) fields, overflow and n_cand.
+    """
+    comp = detect_octave_sparse(resps[None], blurs[None], sig, pd, cfg,
+                                octave)
+    return {k: v[0] for k, v in comp.items()}
 
 
 def octave_affine_inputs(comp: dict, blurs: torch.Tensor, pd: float,

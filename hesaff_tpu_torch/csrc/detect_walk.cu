@@ -1,7 +1,11 @@
-// One detection level: 3x3x3 NMS, dense localisation solve and the
-// bounded localisation walk from every pixel.
+// One detection level: 3x3x3 NMS and the dense localisation solve,
+// shared by two kernels through pixel_maps():
+//   K2 detect_walk_kernel adds the bounded localisation walk from every
+//      pixel (the dense path, octaves under 2^23 px);
+//   K3 detect_maps_kernel writes the maps alone (the sparse walk of
+//      larger octaves and detect_level).
 //
-// Replaces the TPU kernel hesaff_tpu/ops/pallas_detect.py:
+// K2 replaces the TPU kernel hesaff_tpu/ops/pallas_detect.py:
 // detect_walk_pallas (pallas_detect.py:324, kernel body
 // _make_walk_kernel at :176).
 //
@@ -20,12 +24,23 @@
 // limit is gone, and no plane of intermediate maps reaches device
 // memory.
 //
+// K3 replaces detect_maps_pallas (pallas_detect.py:139, kernel body
+// _make_kernel at :37).  It reads 12 bytes and writes 19 a pixel
+// (maps as four floats, the nan / edge / mask flags as one byte each)
+// for about 150 float operations, so on an H100 the bytes bound it.
+// One thread per pixel over a 32 x 8 tile whose three planes sit in
+// shared memory with a 1-px halo: each input is read once from device
+// memory (the halo's re-reads mostly hit L2), the maps go out as one
+// 16-byte store.  The TPU's row blocks with an 8-row halo, its (8, 128)
+// padding and its VMEM-sized block search have no counterpart, so any
+// width runs.
+//
 // Semantics follow hesaff_tpu/detect.py (_localization_maps,
-// _walk_dense) and pallas_detect.py:194-310 operation by operation:
-// edge replication at the image border, strict NMS where ties survive,
-// nan_to_num before the move test (an infinite b moves), edge_bad read
-// at the start pixel, ok = cand & keep & ~edge_bad(start) &
-// stop_ok(final).  Built with --fmad=false so the solve rounds as the
+// _walk_dense) and pallas_detect.py:37-115, 194-310 operation by
+// operation: edge replication at the image border, strict NMS where
+// ties survive, nan_to_num before the move test (an infinite b moves),
+// edge_bad read at the start pixel, ok = cand & keep & ~edge_bad(start)
+// & stop_ok(final).  Built with --fmad=false so the solve rounds as the
 // plain PyTorch version does.
 
 #include <cuda_runtime.h>
@@ -108,6 +123,72 @@ __device__ void solve3x3(const float a[3][3], const float bb[3], float* x0,
   *x0 = ((b0 - row0[2] * *x2) - row0[1] * *x1) / row0[0];
 }
 
+// NMS, finite differences, pivoted solve and edge test at one pixel:
+// the pixel's value sits at index ci of the three IW-wide shared tiles
+// sl / sc / sh (low, cur, high), whose 1-px neighbourhood is in the
+// tiles too.  b0, b1, b2, val are raw (NaN where the solve is
+// singular); the callers sanitise them.
+struct PixelMaps {
+  float b0, b1, b2, val;
+  bool cand, edge_bad, nan_flag;
+};
+
+__device__ __forceinline__ PixelMaps pixel_maps(const float* sl,
+                                                const float* sc,
+                                                const float* sh, int ci,
+                                                int IW, const Params& p) {
+#define AT(a, dr, dc) a[ci + (dr) * IW + (dc)]
+  const float c = AT(sc, 0, 0);
+
+  float mx = c, mn = c;
+  for (int dr = -1; dr <= 1; ++dr)
+    for (int dc = -1; dc <= 1; ++dc) {
+      mx = nmax(mx, AT(sl, dr, dc));
+      mn = nmin(mn, AT(sl, dr, dc));
+      if (dr != 0 || dc != 0) {
+        mx = nmax(mx, AT(sc, dr, dc));
+        mn = nmin(mn, AT(sc, dr, dc));
+      }
+      mx = nmax(mx, AT(sh, dr, dc));
+      mn = nmin(mn, AT(sh, dr, dc));
+    }
+  const bool cand = ((c > p.pos_thr) && (c >= mx)) ||
+                    ((c < p.neg_thr) && (c <= mn));
+
+  const float dxx = (AT(sc, 0, -1) - 2.0f * c) + AT(sc, 0, 1);
+  const float dyy = (AT(sc, -1, 0) - 2.0f * c) + AT(sc, 1, 0);
+  const float dss = (AT(sl, 0, 0) - 2.0f * c) + AT(sh, 0, 0);
+  const float dxy = 0.25f * (((AT(sc, 1, 1) - AT(sc, 1, -1)) -
+                              AT(sc, -1, 1)) + AT(sc, -1, -1));
+  const float dxs = 0.25f * (((AT(sh, 0, 1) - AT(sh, 0, -1)) -
+                              AT(sl, 0, 1)) + AT(sl, 0, -1));
+  const float dys = 0.25f * (((AT(sh, 1, 0) - AT(sh, -1, 0)) -
+                              AT(sl, 1, 0)) + AT(sl, -1, 0));
+  const float dx = 0.5f * (AT(sc, 0, 1) - AT(sc, 0, -1));
+  const float dy = 0.5f * (AT(sc, 1, 0) - AT(sc, -1, 0));
+  const float ds = 0.5f * (AT(sh, 0, 0) - AT(sl, 0, 0));
+  const float A[3][3] = {{dxx, dxy, dxs}, {dxy, dyy, dys}, {dxs, dys, dss}};
+  const float rhs[3] = {-dx, -dy, -ds};
+  float b0, b1, b2;
+  solve3x3(A, rhs, &b0, &b1, &b2);
+  const float val = c + 0.5f * ((dx * b0 + dy * b1) + ds * b2);
+
+  const float edge_den = dxx * dyy - dxy * dxy;
+  const float edge_score = ((dxx + dyy) * (dxx + dyy)) / edge_den;
+  const bool edge_bad = (edge_score >= p.edge_thr) || (edge_score < 0.0f);
+  const bool nan_flag = isnan(b0) || isnan(b1) || isnan(b2);
+#undef AT
+  PixelMaps m;
+  m.b0 = b0;
+  m.b1 = b1;
+  m.b2 = b2;
+  m.val = val;
+  m.cand = cand;
+  m.edge_bad = edge_bad;
+  m.nan_flag = nan_flag;
+  return m;
+}
+
 __global__ void detect_walk_kernel(
     const float* __restrict__ low, const float* __restrict__ cur,
     const float* __restrict__ high, const float* __restrict__ blur,
@@ -149,52 +230,12 @@ __global__ void detect_walk_kernel(
   for (int e = tid; e < RH * RW; e += nt) {
     const int rr = e / RW, cc = e - (e / RW) * RW;
     const int gr = r0 - HALO + rr, gc = c0 - HALO + cc;
-    const int ci = (rr + 1) * IW + (cc + 1);
-#define AT(a, dr, dc) a[ci + (dr) * IW + (dc)]
-    const float c = AT(sc, 0, 0);
-
-    float mx = c, mn = c;
-    for (int dr = -1; dr <= 1; ++dr)
-      for (int dc = -1; dc <= 1; ++dc) {
-        mx = nmax(mx, AT(sl, dr, dc));
-        mn = nmin(mn, AT(sl, dr, dc));
-        if (dr != 0 || dc != 0) {
-          mx = nmax(mx, AT(sc, dr, dc));
-          mn = nmin(mn, AT(sc, dr, dc));
-        }
-        mx = nmax(mx, AT(sh, dr, dc));
-        mn = nmin(mn, AT(sh, dr, dc));
-      }
-    const bool cand = ((c > p.pos_thr) && (c >= mx)) ||
-                      ((c < p.neg_thr) && (c <= mn));
+    const PixelMaps m =
+        pixel_maps(sl, sc, sh, (rr + 1) * IW + (cc + 1), IW, p);
     const bool keep = gr >= p.border && gr < H - p.border &&
                       gc >= p.border && gc < W - p.border;
-
-    const float dxx = (AT(sc, 0, -1) - 2.0f * c) + AT(sc, 0, 1);
-    const float dyy = (AT(sc, -1, 0) - 2.0f * c) + AT(sc, 1, 0);
-    const float dss = (AT(sl, 0, 0) - 2.0f * c) + AT(sh, 0, 0);
-    const float dxy = 0.25f * (((AT(sc, 1, 1) - AT(sc, 1, -1)) -
-                                AT(sc, -1, 1)) + AT(sc, -1, -1));
-    const float dxs = 0.25f * (((AT(sh, 0, 1) - AT(sh, 0, -1)) -
-                                AT(sl, 0, 1)) + AT(sl, 0, -1));
-    const float dys = 0.25f * (((AT(sh, 1, 0) - AT(sh, -1, 0)) -
-                                AT(sl, 1, 0)) + AT(sl, -1, 0));
-    const float dx = 0.5f * (AT(sc, 0, 1) - AT(sc, 0, -1));
-    const float dy = 0.5f * (AT(sc, 1, 0) - AT(sc, -1, 0));
-    const float ds = 0.5f * (AT(sh, 0, 0) - AT(sl, 0, 0));
-#undef AT
-    const float A[3][3] = {{dxx, dxy, dxs}, {dxy, dyy, dys}, {dxs, dys, dss}};
-    const float rhs[3] = {-dx, -dy, -ds};
-    float b0, b1, b2;
-    solve3x3(A, rhs, &b0, &b1, &b2);
-    const float val = c + 0.5f * ((dx * b0 + dy * b1) + ds * b2);
-
-    const float edge_den = dxx * dyy - dxy * dxy;
-    const float edge_score = ((dxx + dyy) * (dxx + dyy)) / edge_den;
-    const bool edge_bad = (edge_score >= p.edge_thr) || (edge_score < 0.0f);
-    const bool nan_flag = isnan(b0) || isnan(b1) || isnan(b2);
-    const float cb0 = nan_to_num(b0), cb1 = nan_to_num(b1);
-    const float cb2 = nan_to_num(b2), cval = nan_to_num(val);
+    const float cb0 = nan_to_num(m.b0), cb1 = nan_to_num(m.b1);
+    const float cb2 = nan_to_num(m.b2), cval = nan_to_num(m.val);
 
     const bool mpx = cb0 > p.max_shift, mnx = cb0 < -p.max_shift;
     const bool mpy = cb1 > p.max_shift, mny = cb1 < -p.max_shift;
@@ -205,15 +246,15 @@ __global__ void detect_walk_kernel(
     const int stc = (mpx ? 1 : 0) + (mnx ? -1 : 0);
     const int str = (mpy ? 1 : 0) + (mny ? -1 : 0);
     const bool moved = stc != 0 || str != 0;
-    const bool stop = nan_flag || border_bad || !moved;
+    const bool stop = m.nan_flag || border_bad || !moved;
     const bool shift_bad = fabsf(cb0) > p.shift_lim ||
                            fabsf(cb1) > p.shift_lim ||
                            fabsf(cb2) > p.shift_lim;
     const bool weak = fabsf(cval) < p.final_thr;
-    const bool stop_ok = !nan_flag && !border_bad && !shift_bad && !weak;
+    const bool stop_ok = !m.nan_flag && !border_bad && !shift_bad && !weak;
 
     flag[e] = (stop ? F_STOP : 0) | (stop_ok ? F_STOPOK : 0) |
-              (cand && keep ? F_CAND : 0) | (edge_bad ? F_EDGE : 0);
+              (m.cand && keep ? F_CAND : 0) | (m.edge_bad ? F_EDGE : 0);
     move[e] = (uint8_t)((str + 1) | ((stc + 1) << 2));
 
     if (rr >= HALO && rr < HALO + TH && cc >= HALO && cc < HALO + TW &&
@@ -228,7 +269,7 @@ __global__ void detect_walk_kernel(
       t[2] = cb2;
       t[3] = cval;
       t[4] = (lb - 2.0f * cbv) + rb;
-      cand_out[out_plane + g] = (cand && keep) ? 1 : 0;
+      cand_out[out_plane + g] = (m.cand && keep) ? 1 : 0;
     }
   }
   __syncthreads();
@@ -251,6 +292,52 @@ __global__ void detect_walk_kernel(
     ok_out[g] = ((f0 & F_CAND) && !(f0 & F_EDGE) && (ff & F_STOPOK)) ? 1 : 0;
     cell_out[g] = qr * W + qc;
   }
+}
+
+// K3: the maps alone, one thread per pixel of an MH x MW tile whose
+// three input planes sit in shared memory with the stencils' 1-px halo
+// (edge-replicated at the image border).
+#define MW 32
+#define MH 8
+
+__global__ void detect_maps_kernel(
+    const float* __restrict__ low, const float* __restrict__ cur,
+    const float* __restrict__ high, long long s_low, long long s_cur,
+    long long s_high, float4* __restrict__ maps_out,
+    uint8_t* __restrict__ nan_out, uint8_t* __restrict__ edge_out,
+    uint8_t* __restrict__ mask_out, int H, int W, Params p) {
+  constexpr int IW = MW + 2, IH = MH + 2;
+  __shared__ float sl[IH * IW], sc[IH * IW], sh[IH * IW];
+  const int n = blockIdx.z;
+  const float* lo = low + n * s_low;
+  const float* cu = cur + n * s_cur;
+  const float* hi = high + n * s_high;
+  const int r0 = blockIdx.y * MH, c0 = blockIdx.x * MW;
+  const int tid = threadIdx.y * MW + threadIdx.x;
+
+  for (int e = tid; e < IH * IW; e += MH * MW) {
+    const int rr = e / IW, cc = e - (e / IW) * IW;
+    const int gr = clampi(r0 - 1 + rr, 0, H - 1);
+    const int gc = clampi(c0 - 1 + cc, 0, W - 1);
+    const size_t g = (size_t)gr * W + gc;
+    sl[e] = lo[g];
+    sc[e] = cu[g];
+    sh[e] = hi[g];
+  }
+  __syncthreads();
+
+  const int gr = r0 + threadIdx.y, gc = c0 + threadIdx.x;
+  if (gr >= H || gc >= W) return;
+  const PixelMaps m = pixel_maps(
+      sl, sc, sh, (threadIdx.y + 1) * IW + (threadIdx.x + 1), IW, p);
+  const bool keep = gr >= p.border && gr < H - p.border &&
+                    gc >= p.border && gc < W - p.border;
+  const size_t g = (size_t)n * H * W + (size_t)gr * W + gc;
+  maps_out[g] = make_float4(nan_to_num(m.b0), nan_to_num(m.b1),
+                            nan_to_num(m.b2), nan_to_num(m.val));
+  nan_out[g] = m.nan_flag ? 1 : 0;
+  edge_out[g] = m.edge_bad ? 1 : 0;
+  mask_out[g] = (m.cand && keep) ? 1 : 0;
 }
 
 // low/cur/high/blur: n (H, W) float planes, plane k of each at
@@ -284,5 +371,28 @@ extern "C" int hesaff_detect_walk(
   detect_walk_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
       low, cur, high, blur, s_low, s_cur, s_high, s_blur, ok, cell, tab,
       cand, H, W, p);
+  return (int)cudaGetLastError();
+}
+
+// K3 entry.  low/cur/high: n (H, W) float planes as for
+// hesaff_detect_walk.  Outputs are contiguous: maps (n,H,W,4) f32 =
+// [b0, b1, b2, val] with NaN -> 0 and +-inf -> +-FLT_MAX (16-byte
+// aligned), nan / edge / mask (n,H,W) one byte each.  Returns
+// cudaGetLastError().
+extern "C" int hesaff_detect_maps(
+    const float* low, const float* cur, const float* high, long long s_low,
+    long long s_cur, long long s_high, float* maps, uint8_t* nan_flag,
+    uint8_t* edge, uint8_t* mask, int n, int H, int W, int border,
+    float pos_thr, float neg_thr, float edge_thr, void* stream) {
+  Params p = {};
+  p.border = border;
+  p.pos_thr = pos_thr;
+  p.neg_thr = neg_thr;
+  p.edge_thr = edge_thr;
+  dim3 block(MW, MH);
+  dim3 grid((W + MW - 1) / MW, (H + MH - 1) / MH, n);
+  detect_maps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      low, cur, high, s_low, s_cur, s_high, (float4*)maps, nan_flag, edge,
+      mask, H, W, p);
   return (int)cudaGetLastError();
 }

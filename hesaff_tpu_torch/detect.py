@@ -1,21 +1,35 @@
-"""DoH extrema detection, dense path: NMS, localisation walk, dedup.
+"""DoH extrema detection: NMS, localisation walk, dedup.
 
-Port of the dense path of ``hesaff_tpu/detect.py``
-(detect_octave_batch_dense).  Per detection level the fused kernel
-(ops/cuda_detect) gives, for every pixel, whether a keypoint starting
-there is accepted and the final cell of its localisation walk.  Then
-one per-image compaction over the (3, H, W) accepted mask in
-level-major raster order (the reference's scan order) to the octave's
-affine capacity, a fetch of (b0, b1, b2, val, Lxx) at the final cells,
-and the octaveMap dedup: accepted keypoints that share a final cell
-keep only the earliest in scan order.  Overflow of the capacity is
-counted, never silent.
+Port of ``hesaff_tpu/detect.py``.  ``detect_octave_batch`` takes one of
+two paths per octave, by the JAX package's rule:
 
+- dense (octaves under 2^23 px, detect_octave_dense): per detection
+  level the fused kernel K2 (ops/cuda_detect.detect_walk) gives, for
+  every pixel, whether a keypoint starting there is accepted and the
+  final cell of its localisation walk.  Then one per-image
+  compaction over the (3, H, W) accepted mask in level-major raster
+  order (the reference's scan order) to the octave's affine capacity, a
+  fetch of (b0, b1, b2, val, Lxx) at the final cells, and the octaveMap
+  dedup: accepted keypoints that share a final cell keep only the
+  earliest in scan order.
+- sparse (octaves of 2^23 px or more): per level the maps kernel K3
+  (ops/cuda_detect.detect_maps) gives the NMS mask and the localisation
+  maps; the candidates are compacted in raster order to the level
+  capacity and each walks through its window of the maps
+  (``detect_level``).  Then the octaveMap dedup over the three levels
+  and one compaction to the affine capacity (detect_octave_sparse).
+  The capacities differ from the dense path's, so when they overflow
+  the results differ too: the port reproduces each path as the JAX
+  package runs it.
+
+Overflow of any capacity is counted, never silent.
 ``candidate_mask``, ``_localization_maps`` and ``_walk_dense`` are the
-plain version of the kernel, operation for operation the JAX twin's.
+plain versions of the kernels, operation for operation the JAX twin's.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,8 +43,25 @@ HESSIAN_DARK = 0
 HESSIAN_BRIGHT = 1
 HESSIAN_SADDLE = 2
 
-# images at or beyond this many pixels take the JAX package's sparse walk
+# octaves at or beyond this many pixels take the sparse walk (the JAX
+# package's rule: its packed dense walk is exact only below 2^23 px)
 SPARSE_PATH_PIXELS = 1 << 23
+
+
+class LevelKeypoints(NamedTuple):
+    """Fixed-capacity localised keypoints of one detection level, for a
+    batch: (B, K) fields, (B,) counts."""
+
+    ok: torch.Tensor        # accepted (pre- or post-dedup)
+    x: torch.Tensor         # image coordinates (already * pixel distance)
+    y: torch.Tensor
+    s: torch.Tensor         # scale (already * pixel distance)
+    response: torch.Tensor  # peak DoH value
+    type: torch.Tensor      # int32 point type
+    r_final: torch.Tensor   # final row on the octave grid (for dedup)
+    c_final: torch.Tensor   # final column
+    overflow: torch.Tensor  # (B,) candidates dropped by the capacity
+    n_cand: torch.Tensor    # (B,) NMS candidates before localisation
 
 
 def _f32(v: float) -> float:
@@ -161,21 +192,185 @@ def _dedup_compacted(cell, valid, big: int):
     return torch.zeros_like(valid).scatter(-1, perm, keep_sorted)
 
 
+def compact_candidates(mask: torch.Tensor, capacity: int):
+    """Raster-order (row, col) of the set pixels of each (H, W) plane of
+    a (B, H, W) mask, padded to `capacity` (the dedup depends on the
+    order).  Returns (rows, cols, valid, overflow (B,))."""
+    B, H, W = mask.shape
+    idx, valid, overflow = compact_rows(mask.reshape(B, H * W), capacity)
+    return idx // W, idx % W, valid, overflow
+
+
+def _walk_window(maps, nan_flag, edge, blur, r0, c0, cur_scale: float,
+                 pd: float, cfg: HesaffConfig):
+    """The bounded localisation walk of every candidate at once.
+
+    maps: (B, H, W, 4) sanitised; nan_flag, edge: (B, H, W) bool; blur:
+    (B, H, W); r0, c0: (B, K) start cells.  Decision logic of JAX's
+    _walk_window, step for step.  Each candidate reads the planes only
+    inside its (2R+1) x (2R+3) window (R = localize_iterations - 1) at
+    the JAX package's clamped start (_window_starts): a read outside it
+    gives 0 in every channel, as JAX's one-hot window read does.
+    Returns (ok, x, y, s, val, type, r_final, c_final), each (B, K).
+    """
+    B, H, W = blur.shape
+    R = cfg.localize_iterations - 1
+    WR, WC = 2 * R + 1, 2 * R + 3
+    sr0 = torch.clamp(r0 - R, 0, H - WR)
+    sc0 = torch.clamp(c0 - (R + 1), 0, W - WC)
+    base = torch.arange(B, device=r0.device)[:, None] * (H * W)
+    planes = (maps.reshape(-1, 4), nan_flag.reshape(-1), edge.reshape(-1),
+              blur.reshape(-1))
+
+    def at(dr, dc, chans):
+        r, c = r0 + dr, c0 + dc
+        inwin = (r >= sr0) & (r < sr0 + WR) & (c >= sc0) & (c < sc0 + WC)
+        g = base + r.clamp(0, H - 1) * W + c.clamp(0, W - 1)
+        out = []
+        for k in chans:
+            v = planes[k][g]
+            out.append(torch.where(inwin[..., None] if v.dim() == 3
+                                   else inwin, v, torch.zeros_like(v)))
+        return out
+
+    zero = torch.zeros_like(r0)
+    dr, dc = zero, zero
+    b = torch.zeros(r0.shape + (3,), dtype=torch.float32, device=r0.device)
+    val = torch.zeros(r0.shape, dtype=torch.float32, device=r0.device)
+    (edge0,) = at(dr, dc, (2,))
+    alive = ~edge0
+    rejected = ~alive
+    ms = _f32(cfg.max_subpixel_shift)
+    safety = cfg.point_safety_border
+    for it in range(cfg.localize_iterations):
+        v, nan_bad = at(dr, dc, (0, 1))
+        sol = v[..., :3]
+        rejected = rejected | (alive & nan_bad)
+        alive = alive & ~nan_bad
+        b = torch.where(alive[..., None], sol, b)
+        val = torch.where(alive, v[..., 3], val)
+
+        r, c = r0 + dr, c0 + dc
+        move_px = sol[..., 0] > ms
+        move_nx = sol[..., 0] < -ms
+        move_py = sol[..., 1] > ms
+        move_ny = sol[..., 1] < -ms
+        border_bad = ((move_px & ~(c < W - safety))
+                      | (move_nx & ~(c > safety))
+                      | (move_py & ~(r < H - safety))
+                      | (move_ny & ~(r > safety)))
+        rejected = rejected | (alive & border_bad)
+        alive = alive & ~border_bad
+        sc = move_px.long() - move_nx.long()
+        sr = move_py.long() - move_ny.long()
+        alive = alive & ((sc != 0) | (sr != 0))
+        if it < cfg.localize_iterations - 1:
+            dc = torch.where(alive, dc + sc, dc)
+            dr = torch.where(alive, dr + sr, dr)
+
+    lim = _f32(cfg.final_shift_limit)
+    shift_bad = (b.abs() > lim).any(dim=-1)
+    weak = val.abs() < _f32(cfg.final_threshold)
+    ok = ~rejected & ~shift_bad & ~weak
+
+    scale = (torch.tensor(cur_scale, dtype=torch.float32, device=r0.device)
+             * torch.exp2(fdiv(b[..., 2], cfg.num_scales)))
+    (bl,), (bc,), (br,) = (at(dr, dc + k, (3,)) for k in (-1, 0, 1))
+    lxx = bl - 2.0 * bc + br
+    ptype = torch.where(
+        val < 0, HESSIAN_SADDLE,
+        torch.where(lxx < 0, HESSIAN_DARK, HESSIAN_BRIGHT)).to(torch.int32)
+    r, c = r0 + dr, c0 + dc
+    x = pd * (c.float() + b[..., 0])
+    y = pd * (r.float() + b[..., 1])
+    return ok, x, y, pd * scale, val, ptype, r, c
+
+
+def detect_level(low, cur, high, blur, cur_scale: float, pd: float,
+                 capacity: int, cfg: HesaffConfig) -> LevelKeypoints:
+    """Candidates and their localisation walks for one detection level.
+
+    low/cur/high/blur: (B, H, W) planes (rows contiguous).  The maps come
+    dense from K3; the candidates, compacted in raster order to
+    `capacity` (overflow counted), walk through their windows of them.
+    """
+    maps, nan_flag, edge, mask = cuda_detect.detect_maps(low, cur, high,
+                                                         cfg)
+    rows, cols, valid, overflow = compact_candidates(mask, capacity)
+    ok, x, y, s, val, ptype, r_f, c_f = _walk_window(
+        maps, nan_flag, edge, blur, rows, cols, cur_scale, pd, cfg)
+    return LevelKeypoints(
+        ok=ok & valid, x=x, y=y, s=s, response=val, type=ptype,
+        r_final=r_f, c_final=c_f, overflow=overflow,
+        n_cand=mask.reshape(mask.shape[0], -1).sum(dim=1))
+
+
+def dedup_octave(levels: list[LevelKeypoints], H: int, W: int):
+    """octaveMap dedup across an octave's levels: accepted keypoints
+    that share a final cell keep only the earliest in (level, raster)
+    scan order.  Returns the levels with `ok` updated."""
+    cell = torch.cat([lk.r_final * W + lk.c_final for lk in levels], dim=1)
+    ok = torch.cat([lk.ok for lk in levels], dim=1)
+    keep = _dedup_compacted(cell, ok, H * W + 1)
+    sizes = [lk.ok.shape[1] for lk in levels]
+    return [lk._replace(ok=k) for lk, k in
+            zip(levels, torch.split(keep, sizes, dim=1))]
+
+
+def compact_levels(levels: list[LevelKeypoints], capacity: int) -> dict:
+    """The accepted keypoints of an octave's levels compacted to one
+    (B, capacity) set in emission order (level-major, then raster).
+    Returns ok, level (1-based detection level), x, y, s, response,
+    type and the (B,) overflow of this compaction."""
+    ok = torch.cat([lk.ok for lk in levels], dim=1)
+    idx, valid, overflow = compact_rows(ok, capacity)
+    cat = lambda f: torch.cat([getattr(lk, f) for lk in levels],
+                              dim=1).gather(1, idx)
+    level = torch.cat([torch.full_like(lk.type, i + 1)
+                       for i, lk in enumerate(levels)], dim=1).gather(1, idx)
+    return dict(ok=valid, level=level, x=cat("x"), y=cat("y"), s=cat("s"),
+                response=cat("response"), type=cat("type"),
+                overflow=overflow)
+
+
+def detect_octave_sparse(resps, blurs, sig, pd: float, cfg: HesaffConfig,
+                         octave: int = 0) -> dict:
+    """Octave detection through detect_level: three levels, dedup, one
+    compaction to the affine capacity.  Only one level's maps are alive
+    at a time.  overflow counts the level capacities' and the affine
+    capacity's drops."""
+    H, W = resps.shape[-2], resps.shape[-1]
+    cap = cfg.level_capacity(H, W, octave)
+    levels = [detect_level(resps[:, l - 1], resps[:, l], resps[:, l + 1],
+                           blurs[:, l], sig[l], pd, cap, cfg)
+              for l in range(1, cfg.num_scales + 1)]
+    levels = dedup_octave(levels, H, W)
+    comp = compact_levels(levels, cfg.affine_capacity(H, W, octave))
+    comp["overflow"] = comp["overflow"] + sum(lk.overflow for lk in levels)
+    comp["n_cand"] = sum(lk.n_cand for lk in levels)
+    return comp
+
+
 def detect_octave_batch(resps, blurs, sig, pd: float, cfg: HesaffConfig,
                         octave: int = 0):
-    """Whole-batch octave detection via the dense walk.
+    """Whole-batch octave detection.
 
     resps, blurs: (B, L, H, W) with L = num_scales + 2; sig: per-level
-    sigmas.  Returns a dict of (B, acap) fields ok / level / x / y / s /
-    response / type, plus (B,) overflow and n_cand.
+    sigmas.  Octaves of SPARSE_PATH_PIXELS or more take the sparse path,
+    smaller ones the dense walk.  Returns a dict of (B, acap) fields ok /
+    level / x / y / s / response / type, plus (B,) overflow and n_cand.
     """
-    B = resps.shape[0]
     H, W = resps.shape[-2], resps.shape[-1]
     if H * W >= SPARSE_PATH_PIXELS:
-        raise NotImplementedError(
-            f"{H}x{W} octave: images of 2^23 px or more take the sparse "
-            "localisation path, not ported yet (ROADMAP queue 1, "
-            "off-main-path detect)")
+        return detect_octave_sparse(resps, blurs, sig, pd, cfg, octave)
+    return detect_octave_dense(resps, blurs, sig, pd, cfg, octave)
+
+
+def detect_octave_dense(resps, blurs, sig, pd: float, cfg: HesaffConfig,
+                        octave: int = 0) -> dict:
+    """Whole-batch octave detection via the dense walk (K2)."""
+    B = resps.shape[0]
+    H, W = resps.shape[-2], resps.shape[-1]
     HW = H * W
     nl = cfg.num_scales
     acap = cfg.affine_capacity(H, W, octave)

@@ -1,11 +1,17 @@
-"""One detection level fully walked: CUDA kernel and plain version.
+"""One detection level: CUDA kernels and their plain versions.
 
-The kernel (csrc/detect_walk.cu) replaces the TPU kernel
-``hesaff_tpu/ops/pallas_detect.py`` detect_walk_pallas: strict 3x3x3
-NMS, the dense 3x3 localisation solve, the edge and NaN tests and the
-bounded walk from every pixel.  A CPU tensor takes the plain PyTorch
-version (``detect.candidate_mask`` + ``_localization_maps`` +
-``_walk_dense``); a CUDA tensor launches the kernel or raises.
+Two kernels of csrc/detect_walk.cu, each replacing a TPU kernel of
+``hesaff_tpu/ops/pallas_detect.py``:
+
+- ``detect_walk`` (K2, detect_walk_pallas): strict 3x3x3 NMS, the dense
+  3x3 localisation solve, the edge and NaN tests and the bounded walk
+  from every pixel; the dense detection path.
+- ``detect_maps`` (K3, detect_maps_pallas): the same NMS and maps
+  without the walk; the sparse detection path and ``detect_level``.
+
+A CPU tensor takes the plain PyTorch version (``detect.candidate_mask``
++ ``_localization_maps``, then ``_walk_dense`` for K2); a CUDA tensor
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,18 +22,26 @@ import torch
 
 from hesaff_tpu_torch.ops import cuda_build
 
-# launches of the CUDA kernel in this process
+# launches of the CUDA kernels in this process: K2, K3
 LAUNCHES = 0
+MAPS_LAUNCHES = 0
+
+
+def detect_maps_plain(low, cur, high, cfg):
+    """Plain PyTorch version of detect_maps (same outputs)."""
+    from hesaff_tpu_torch import detect
+
+    mask = detect.candidate_mask(low, cur, high, cfg)
+    maps, edge = detect._localization_maps(low, cur, high, cfg)
+    nan_flag = maps[..., :3].isnan().any(dim=-1)
+    return torch.nan_to_num(maps), nan_flag, edge, mask
 
 
 def detect_walk_plain(low, cur, high, blur, cfg):
     """Plain PyTorch version of detect_walk (same outputs)."""
     from hesaff_tpu_torch import detect
 
-    cand = detect.candidate_mask(low, cur, high, cfg)
-    maps, edge_bad = detect._localization_maps(low, cur, high, cfg)
-    nan_flag = maps[..., :3].isnan().any(dim=-1)
-    clean = torch.nan_to_num(maps)
+    clean, nan_flag, edge_bad, cand = detect_maps_plain(low, cur, high, cfg)
     ok, cell = detect._walk_dense(clean, nan_flag, edge_bad, cand, cfg)
     lxx = (detect._shift_rep(blur, 0, -1) - 2.0 * blur
            + detect._shift_rep(blur, 0, 1))
@@ -51,15 +65,63 @@ def detect_walk(low, cur, high, blur, cfg):
     return _launch(low, cur, high, blur, cfg)
 
 
-def _launch(low, cur, high, blur, cfg):
-    global LAUNCHES
-    N, H, W = cur.shape
-    for t in (low, cur, high, blur):
+def detect_maps(low, cur, high, cfg):
+    """low/cur/high: (N, H, W) DoH planes of levels l-1, l, l+1, rows
+    contiguous; planes may be strided views.
+
+    Returns (maps (N,H,W,4) float32 = [b0, b1, b2, val] with NaN -> 0
+    and +-inf -> the largest finite float, nan (N,H,W) bool where any of
+    b0, b1, b2 is NaN, edge (N,H,W) bool edge_score >= thr or < 0, mask
+    (N,H,W) bool strict NMS candidates inside the border window).
+    """
+    if cur.device.type == "cpu":
+        return detect_maps_plain(low, cur, high, cfg)
+    if cur.device.type != "cuda":
+        raise ValueError(f"detect_maps: unsupported device {cur.device}")
+    return _launch_maps(low, cur, high, cfg)
+
+
+def _check_planes(planes, what):
+    cur = planes[1]
+    for t in planes:
         if (t.dtype != torch.float32 or t.shape != cur.shape
                 or t.device != cur.device or t.stride(-1) != 1
-                or t.stride(-2) != W):
-            raise ValueError("detect_walk: needs float32 (N, H, W) planes "
+                or t.stride(-2) != cur.shape[-1]):
+            raise ValueError(f"{what}: needs float32 (N, H, W) planes "
                              "with contiguous rows on one device")
+
+
+def _launch_maps(low, cur, high, cfg):
+    global MAPS_LAUNCHES
+    _check_planes((low, cur, high), "detect_maps")
+    N, H, W = cur.shape
+    dev = cur.device
+    maps = torch.empty((N, H, W, 4), dtype=torch.float32, device=dev)
+    flags = [torch.empty((N, H, W), dtype=torch.bool, device=dev)
+             for _ in range(3)]
+    if N == 0:
+        return (maps, *flags)
+    fn = cuda_build.library("detect_walk").hesaff_detect_maps
+    fn.restype = ctypes.c_int
+    vp, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_longlong)
+    fn.argtypes = [vp] * 3 + [ll] * 3 + [vp] * 4 + [i] * 4 + [f] * 3 + [vp]
+    with torch.cuda.device(dev):
+        err = fn(*(cuda_build.ptr(t) for t in (low, cur, high)),
+                 *(t.stride(0) for t in (low, cur, high)),
+                 *(cuda_build.ptr(t) for t in (maps, *flags)),
+                 N, H, W, cfg.border, cfg.positive_threshold,
+                 cfg.negative_threshold, cfg.edge_score_threshold,
+                 cuda_build.stream())
+    cuda_build.check(err, "detect_maps")
+    MAPS_LAUNCHES += 1
+    return (maps, *flags)
+
+
+def _launch(low, cur, high, blur, cfg):
+    global LAUNCHES
+    _check_planes((low, cur, high, blur), "detect_walk")
+    N, H, W = cur.shape
     dev = cur.device
     ok = torch.empty((N, H, W), dtype=torch.uint8, device=dev)
     cell = torch.empty((N, H, W), dtype=torch.int32, device=dev)

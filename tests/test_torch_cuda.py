@@ -8,7 +8,10 @@ they run as
 
 Tolerances are the kernels' (chip_smoke.py states the same): blur atol
 1e-4 and response atol 0.1; the walk exact (ok, cand, cells) with its
-field table at rtol 1e-6 / atol 1e-5; the affine loop under the 2%
+field table at rtol 1e-6 / atol 1e-5; the maps kernel with equal mask,
+nan and edge flags and the maps at rtol 1e-6 / atol 1e-5 where the
+mask is set; the sparse octave path equal to its CPU run in every
+field but s (rtol 1e-6, the exp2 wobble); the affine loop under the 2%
 ok/iteration flip budget with U rtol 1e-4 / atol 5e-5; the patch kernel
 with equal bad flags and patches at atol 1e-3; SIFT within one step and
 >= 99% exact.
@@ -71,6 +74,63 @@ def test_detect_walk_kernel(dev, H, W):
     np.testing.assert_allclose(tab[pok].cpu().numpy(),
                                ptab[pok].cpu().numpy(), rtol=1e-6,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("H,W", [(200, 240), (61, 45), (24, 2600)])
+def test_detect_maps_kernel(dev, H, W):
+    """K3 against its plain version; the 2600-wide case shows that no
+    width limit of the TPU kernel's VMEM budget carries over."""
+    from hesaff_tpu_torch.ops import cuda_detect
+
+    rng = np.random.default_rng(7)
+    planes = [torch.as_tensor(smooth_stacks(rng, 2, H, W) * 40.0,
+                              device=dev) for _ in range(3)]
+    before = cuda_detect.MAPS_LAUNCHES
+    maps, nan_flag, edge, mask = cuda_detect.detect_maps(*planes, CFG)
+    pmaps, pnan, pedge, pmask = cuda_detect.detect_maps_plain(*planes, CFG)
+    torch.cuda.synchronize()
+    assert cuda_detect.MAPS_LAUNCHES == before + 1
+    assert torch.equal(mask, pmask) and int(pmask.sum()) > 0
+    assert torch.equal(nan_flag, pnan) and torch.equal(edge, pedge)
+    np.testing.assert_allclose(maps[pmask].cpu().numpy(),
+                               pmaps[pmask].cpu().numpy(), rtol=1e-6,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("caps", ["default", "small"])
+def test_sparse_octave_on_gpu_matches_cpu(dev, caps):
+    """The sparse octave path (K3, the windowed walk, dedup, compaction)
+    on the card equals its CPU run on the 200x160 golden's octave 0 and
+    its flip, also where the small capacities overflow."""
+    import dataclasses
+
+    from hesaff_tpu_torch import detect
+    from hesaff_tpu_torch.ops import cuda_detect
+    from hesaff_tpu_torch.pyramid import level_sigmas
+
+    cfg = CFG if caps == "default" else dataclasses.replace(
+        CFG, candidate_cap_min=16, candidate_cap_max=32, affine_cap_min=16,
+        affine_cap_max=40)
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "data",
+                             "synth_200x160.npz"))
+    stack = lambda k: np.stack([d[f"oct0_{k}{i}"] for i in range(5)])
+    flip = lambda a: np.ascontiguousarray(a[:, ::-1, ::-1])
+    resps, blurs = (torch.as_tensor(np.stack([a, flip(a)]).astype(np.float32))
+                    for a in (stack("resp"), stack("blur")))
+    sig = level_sigmas(cfg)
+    before = cuda_detect.MAPS_LAUNCHES
+    gpu = detect.detect_octave_sparse(resps.to(dev), blurs.to(dev), sig,
+                                      1.0, cfg)
+    cpu = detect.detect_octave_sparse(resps, blurs, sig, 1.0, cfg)
+    assert cuda_detect.MAPS_LAUNCHES == before + cfg.num_scales
+    assert int(cpu["ok"].sum()) > 40
+    assert (caps == "small") == bool((cpu["overflow"] > 0).all())
+    for k, v in cpu.items():
+        if k == "s":     # exp2 may round an ulp apart on the two devices
+            np.testing.assert_allclose(gpu[k].cpu().numpy(), v.numpy(),
+                                       rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(gpu[k].cpu(), v), k
 
 
 @pytest.mark.parametrize("H,W,margin", [(200, 160, 20), (48, 40, 4)])

@@ -85,7 +85,18 @@ def test_dedup_keeps_first_in_scan_order():
                                   [True, True, False, True, False, False])
 
 
-def test_sparse_size_raises():
-    big = torch.zeros((1, 1, 1, 1)).expand(1, 5, 2048, 4096)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        detect.detect_octave_batch(big, big, [1.0] * 5, 1.0, PCFG)
+@pytest.mark.parametrize("threshold,path", [(160 * 200, "sparse"),
+                                            (160 * 200 + 1, "dense")])
+def test_sparse_size_dispatches(monkeypatch, threshold, path):
+    """An octave takes the sparse path exactly when H * W reaches
+    SPARSE_PATH_PIXELS (2^23, the JAX package's rule), checked at a
+    lowered threshold."""
+    assert detect.SPARSE_PATH_PIXELS == 1 << 23
+    monkeypatch.setattr(detect, "SPARSE_PATH_PIXELS", threshold)
+    taken = []
+    for name in ("sparse", "dense"):
+        monkeypatch.setattr(detect, f"detect_octave_{name}",
+                            lambda *a, name=name: taken.append(name))
+    x = torch.zeros((1, 5, 160, 200))
+    detect.detect_octave_batch(x, x, [1.0] * 5, 1.0, PCFG)
+    assert taken == [path]

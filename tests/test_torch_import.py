@@ -39,10 +39,11 @@ def test_cpu_run_launches_no_kernel(golden_small):
                                       cuda_patches, cuda_sift)
 
     mods = (cuda_blur, cuda_detect, cuda_affine, cuda_patches, cuda_sift)
-    before = [m.LAUNCHES for m in mods]
+    count = lambda: [m.LAUNCHES for m in mods] + [cuda_detect.MAPS_LAUNCHES]
+    before = count()
     feats = extract(golden_small["gray"][:96, :80], device="cpu")
     assert feats.n > 0
-    assert [m.LAUNCHES for m in mods] == before == [0] * len(mods)
+    assert count() == before == [0] * (len(mods) + 1)
     assert np.isfinite(feats.x).all()
 
 
