@@ -5,18 +5,20 @@
 
 Builds the CUDA kernels from hesaff_tpu_torch/csrc (phase 1), holds each
 of the six against its plain PyTorch version at the main path's shapes
-(phase 2; K3 on the octave-0 planes of phase 6's images), runs
-extract() on the 200x160 oracle golden (phase 3), and drives both batch
-entry points on 16 synthetic 800x640 images (the bench imagery of
-bench.py): extract_batch (phase 4) and the grouped serving path
-dist.extraction_step_grouped with bench.py's group table (phase 5),
-each checked against a CPU run of the plain versions on image 0.  Phase
-5 also times 7 more batches and profiles one (torch.profiler): the
-device's busy and idle share of the batch, device ms by kernel, and the
-host ms of each stage's span in dist.py.  Phase 6 runs extract_batch on
-two 4032x3024 images, the full frame of a 12 MP camera, whose octave 0
-(2^23 px or more) takes the sparse detection path through K3, and gates
-image 0 against a CPU run.  Exits non-zero on any failed phase; on
+(phase 2; K2 in one launch over octave 0's detection levels, K5 on
+every group of the serving path, K3 on the octave-0 planes of phase 6's
+images), runs extract() on the 200x160 oracle golden (phase 3), and
+drives both batch entry points on 16 synthetic 800x640 images (the
+bench imagery of bench.py): extract_batch (phase 4) and the grouped
+serving path dist.extraction_step_grouped with bench.py's group table
+(phase 5), each checked against a CPU run of the plain versions on
+image 0.  Phase 5 also times 7 more batches and profiles one
+(torch.profiler): the device's busy and idle share of the batch, device
+ms by kernel and of torch.cat's kernels, and the host ms of each
+stage's span in dist.py.  Phase 6 runs extract_batch on two 4032x3024
+images, the full frame of a 12 MP camera, whose octave 0 (2^23 px or
+more) takes the sparse detection path through K3, and gates image 0
+against a CPU run.  Exits non-zero on any failed phase; on
 success the last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -139,14 +141,26 @@ def read_counts() -> dict:
     return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
 
 
-def check_dense_launches(launches: dict, what: str) -> None:
+def dense_octaves(H: int, W: int, cfg) -> int:
+    """Octaves of an H x W input that take the dense walk: K2 launches
+    once for each."""
+    from hesaff_tpu_torch import detect
+
+    return sum((H >> o) * (W >> o) < detect.SPARSE_PATH_PIXELS
+               for o in range(cfg.num_octaves(H, W)))
+
+
+def check_dense_launches(launches: dict, cfg, what: str) -> None:
     """An 800x640 batch runs every kernel but K3: its octaves are all
-    under 2^23 px, so they take the dense walk."""
+    under 2^23 px, so they take the dense walk, one K2 launch each."""
     for k, v in launches.items():
         if k == "detect_maps":
             check(v == 0, f"{what}: K3 launched {v} times on the dense path")
         else:
             check(v > 0, f"{what}: kernel {k} never launched on the path")
+    n = dense_octaves(HEIGHT, WIDTH, cfg)
+    check(launches["detect_walk"] == n, f"{what}: K2 launched "
+          f"{launches['detect_walk']} times, not once per octave ({n})")
 
 
 def bench_config():
@@ -243,32 +257,55 @@ def phase_kernels(images, cfg, dev) -> dict:
     rec["blur_doh"] = dict(max_abs_err=er, ms=ms, plain_ms=pms, **bound(
         3 * nbytes(first), first.numel() * (4 * len(taps) + 13)))
 
-    # K2 on the real octave-0 responses, every detection level
+    # K2 on the real octave-0 ladders: one launch over every detection
+    # level, as detect_octave_dense calls it
     o = pyramid.build_octave(first, pd, cfg)
-    e2, ms, pms, b2, f2 = 0.0, 0.0, 0.0, 0, 0
-    for l in range(1, cfg.num_scales + 1):
-        args = (o.resps[:, l - 1], o.resps[:, l], o.resps[:, l + 1],
-                o.blurs[:, l])
-        ok, cell, tab, cand = cuda_detect.detect_walk(*args, cfg)
-        pok, pcell, ptab, pcand = cuda_detect.detect_walk_plain(*args, cfg)
-        check(bool(torch.equal(ok, pok)), f"detect_walk ok plane, level {l}")
-        check(bool(torch.equal(cand, pcand)), f"detect_walk cand, level {l}")
-        check(bool(torch.equal(cell[pok], pcell[pok])),
-              f"detect_walk cells where ok, level {l}")
-        d = (tab[pok] - ptab[pok]).abs()
-        close = d <= 1e-5 + 1e-6 * ptab[pok].abs()
-        check(bool(close.all()), f"detect_walk tab, level {l}")
-        e2 = max(e2, float(d.max()) if d.numel() else 0.0)
-        # 26-neighbour NMS a pixel; <= 5 steps of a 3x3 solve a candidate
-        b2 += nbytes(*args, ok, cell, tab, cand)
-        f2 += 30 * o.resps[:, l].numel() + 300 * int(cand.sum())
-        ms += timed(lambda: cuda_detect.detect_walk(*args, cfg))
-        pms += timed(lambda: cuda_detect.detect_walk_plain(*args, cfg), 3)
-    log(f"phase 2 detect_walk 3 x {tuple(o.resps[:, 1].shape)}: ok/cand/"
-        f"cells equal, tab max err {e2:.3g} (rtol 1e-6, atol 1e-5); kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms (3 levels)")
-    rec["detect_walk"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms,
-                              **bound(b2, f2))
+    nl = cfg.num_scales
+    ok, cell, tab, cand = cuda_detect.detect_walk_octave(o.resps, o.blurs,
+                                                         cfg)
+    pok, pcell, ptab, pcand = cuda_detect.detect_walk_octave_plain(
+        o.resps, o.blurs, cfg)
+    e2 = 0.0
+    for l in range(nl):
+        check(bool(torch.equal(ok[:, l], pok[:, l])),
+              f"detect_walk ok plane, level {l + 1}")
+        check(bool(torch.equal(cand[:, l], pcand[:, l])),
+              f"detect_walk cand, level {l + 1}")
+        check(bool(torch.equal(cell[:, l], pcell[:, l])),
+              f"detect_walk cells, level {l + 1}")
+        # the table at every pixel: detect_octave_dense gathers it at the
+        # walks' final cells, wherever they end
+        d = (tab[:, l] - ptab[:, l]).abs()
+        check(bool((d <= 1e-5 + 1e-6 * ptab[:, l].abs()).all()),
+              f"detect_walk tab, level {l + 1}")
+        e2 = max(e2, float(d.max()))
+        del d
+    ms = timed(lambda: cuda_detect.detect_walk_octave(o.resps, o.blurs, cfg))
+    pms = timed(lambda: cuda_detect.detect_walk_octave_plain(
+        o.resps, o.blurs, cfg), 3)
+    # the whole dense detection of the octave around it (K2, compaction
+    # with its host sync, final-cell fetch, dedup): host clock around a
+    # synchronised call, median of 5 after a warm-up
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        detect.detect_octave_dense(o.resps, o.blurs, sig, pd, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 2 detect_walk_octave {tuple(o.resps.shape)}: ok/cand/cells "
+        f"equal at {nl} levels, tab max err {e2:.3g} at every pixel (rtol "
+        f"1e-6, atol 1e-5); kernel {ms:.3f} ms, plain {pms:.3f} ms (one "
+        f"launch); detect_octave_dense wall {np.median(walls[1:]):.3f} ms "
+        f"(median of {[round(w, 3) for w in walls[1:]]})")
+    # reads the nl + 2 response planes and blurs 1..nl once, writes ok,
+    # cell, tab and cand of every level; 26-neighbour NMS a pixel and
+    # <= 5 steps of a 3x3 solve a candidate
+    rec["detect_walk"] = dict(max_abs_err=e2, ms=ms, plain_ms=pms, **bound(
+        nbytes(o.resps[:, :nl + 2], o.blurs[:, 1:nl + 1], ok, cell, tab,
+               cand),
+        30 * o.resps[:, 1:nl + 1].numel() + 300 * int(cand.sum())))
+    del ok, cell, tab, cand, pok, pcell, ptab, pcand
 
     # K4 on the octave's real keypoints
     comp = detect.detect_octave_batch(o.resps, o.blurs, sig, pd, cfg)
@@ -538,7 +575,7 @@ def phase_batch(images_np, cfg, dev) -> dict:
     check(all(f.desc.dtype == np.uint8 and f.desc.shape == (f.n, 128)
               for f in feats), "batch: descriptor shape/type")
     check(n_desc > 0, "batch: no descriptors")
-    check_dense_launches(launches, "batch")
+    check_dense_launches(launches, cfg, "batch")
     log(f"phase 4 batch {BATCH}x{HEIGHT}x{WIDTH}: {n_desc} descriptors, "
         f"wall {wall * 1000:.1f} ms/batch after one warm-up; funnel: "
         f"candidates {stats.num_candidates}, keypoints "
@@ -591,7 +628,7 @@ def phase_grouped(images_np, cfg, dev) -> dict:
           == (v.numel(), 128), "grouped: descriptor shape/type")
     check(n_valid > 0, "grouped: no descriptors")
     check(overflow == 0, f"grouped: overflow {overflow}")
-    check_dense_launches(launches, "grouped")
+    check_dense_launches(launches, cfg, "grouped")
     log(f"phase 5 grouped {BATCH}x{HEIGHT}x{WIDTH}, groups {groups}: "
         f"{n_valid} valid descriptors in {v.numel()} slots, overflow "
         f"{overflow}, wall {wall * 1000:.1f} ms/batch after one warm-up, "
@@ -649,8 +686,10 @@ def phase_large(large_np, cfg, dev) -> dict:
     check(launches["detect_maps"] == cfg.num_scales,
           f"large: K3 launched {launches['detect_maps']} times, not once "
           "per level of octave 0")
-    check(launches["detect_walk"] % cfg.num_scales == 0,
-          f"large: K2 launched {launches['detect_walk']} times")
+    n_dense = dense_octaves(H, W, cfg)
+    check(launches["detect_walk"] == n_dense,
+          f"large: K2 launched {launches['detect_walk']} times, not once "
+          f"per dense octave ({n_dense})")
     finite = all(np.isfinite(np.stack([f.x, f.y, f.s, f.a11, f.a12, f.a21,
                                        f.a22, f.response])).all()
                  for f in feats)
@@ -745,6 +784,17 @@ def profile_grouped(images, cfg, groups) -> None:
     log("  device ms by kernel (top 10): " + "; ".join(
         f"{k[:60]} {v:.3f}"
         for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]))
+    cat = {k: v for k, v in per_kernel.items() if "CatArray" in k}
+    log(f"  device ms of torch.cat's kernels: {sum(cat.values()):.3f} "
+        f"({len(cat)} kernel names)")
+    # the port's kernels, each summed over its template instances (K5
+    # has one a tile geometry)
+    ours = (("K1", "blur_doh_kernel"), ("K2", "detect_walk_kernel"),
+            ("K4", "affine_kernel"), ("K5", "patches_kernel"),
+            ("K6", "sift_kernel"))
+    log("  device ms of the port's kernels: " + ", ".join(
+        f"{k} {sum(v for n, v in per_kernel.items() if sym in n):.3f}"
+        for k, sym in ours))
 
 
 def main() -> int:

@@ -1,28 +1,48 @@
-// One detection level: 3x3x3 NMS and the dense localisation solve,
-// shared by two kernels through pixel_maps():
-//   K2 detect_walk_kernel adds the bounded localisation walk from every
-//      pixel (the dense path, octaves under 2^23 px);
-//   K3 detect_maps_kernel writes the maps alone (the sparse walk of
-//      larger octaves and detect_level).
+// Detection levels: 3x3x3 NMS and the dense localisation solve, shared
+// by two kernels:
+//   K2 detect_walk_kernel: every detection level of an octave in one
+//      launch, with the bounded localisation walk from every pixel (the
+//      dense path, octaves under 2^23 px);
+//   K3 detect_maps_kernel: the maps of one level alone (the sparse walk
+//      of larger octaves and detect_level).
 //
 // K2 replaces the TPU kernel hesaff_tpu/ops/pallas_detect.py:
 // detect_walk_pallas (pallas_detect.py:324, kernel body
-// _make_walk_kernel at :176).
+// _make_walk_kernel at :176), which the JAX package calls once per
+// level.
 //
-// What bounds it on an H100: the per-pixel arithmetic (26-neighbour
-// max/min, ten finite differences, a pivoted 3x3 solve with four
-// divisions, the edge test) over four input planes, about 150 float
-// operations against 16 bytes read and 33 bytes written a pixel; and
-// the walk, which is data-dependent control flow.  The TPU composed the
-// walk as four 9-way selects over whole planes carrying cell + accept
-// bit packed into one float (exact only below 2^23 pixels).  Here each
-// block computes the per-pixel records of its tile plus a halo of
-// iters-1 pixels (the walk's reach) into shared memory, one byte per
-// pixel (move, stop, stop-accept, candidate, edge), and then every
-// output pixel walks directly: at most iters-1 steps, stop where the
-// record says stop, else step.  Cells stay int32, so the 2^23-pixel
-// limit is gone, and no plane of intermediate maps reaches device
-// memory.
+// What bounds K2 on an H100: the per-pixel arithmetic, not memory.  The
+// function reads 5 response planes and 3 blurs and writes 3 levels of
+// ok, cell, cand and the 5-float field table, about 110 bytes an octave
+// pixel (0.27 ms at 16 x 640 x 800 on 3.35 TB/s); a pixel's record costs
+// a pivoted 3x3 solve with four divisions and ten finite differences
+// under --fmad=false (walk decisions hang on ulps of the solve, so it
+// rounds as the plain version does), plus the 26-neighbour NMS and the
+// edge test at each output pixel.  The walk itself is data-dependent
+// control flow.  The TPU composed the walk as four 9-way selects over
+// whole planes carrying cell + accept bit packed into one float (exact
+// only below 2^23 pixels).  Here:
+// - one launch covers all levels of the octave (grid x = tile column x
+//   level, level fastest, so the three level blocks of a tile run side
+//   by side and share its five response planes through L2), and writes
+//   straight into (B, nl, ...) outputs: the caller reshapes instead of
+//   stacking per-level results;
+// - a block owns a 64 x 32 output tile (rows x columns; the fastest of
+//   four tiles timed, PERF.md PR 4) and computes one record byte (move, stop,
+//   stop-accept, candidate, edge) for the tile plus a halo of iters-1
+//   pixels (the walk's reach): 72 x 40 records for 64 x 32 outputs at
+//   iters 5, 1.41 records an output pixel (16 x 32 had 1.875);
+// - the three input tiles come in by 16-byte cp.async copies where a
+//   row chunk lies inside the image on a 16-byte boundary, and by
+//   clamped scalar loads at the image border (the replicate border; a
+//   TMA tile fills with zeros out of bounds, so it does not fit);
+// - the NMS, the edge test and the table run at output pixels only (the
+//   halo needs the solve alone), and the NMS takes fmaxf / fminf with one
+//   "any NaN among the 27" flag, which gives the NaN-propagating max's
+//   candidates bit for bit;
+// - the table is planar (B, nl, 5, H, W): five coalesced plane stores;
+// - cells stay int32, so the 2^23-pixel limit is gone, and no plane of
+//   intermediate maps reaches device memory.
 //
 // K3 replaces detect_maps_pallas (pallas_detect.py:139, kernel body
 // _make_kernel at :37).  It reads 12 bytes and writes 19 a pixel
@@ -48,9 +68,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#define TW 32
-#define TH 16
+// K2 block size
+#define WTHREADS 256
+// K2 output tile, rows x columns
+#define WTH 64
+#define WTW 32
 
+// record byte: flags in bits 0-3, row step + 1 in bits 4-5, column
+// step + 1 in bits 6-7
 #define F_STOP 1
 #define F_STOPOK 2
 #define F_CAND 4
@@ -63,14 +88,6 @@ struct Params {
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// jnp.maximum / jnp.minimum: NaN propagates
-__device__ __forceinline__ float nmax(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : (a > b ? a : b);
-}
-__device__ __forceinline__ float nmin(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : (a < b ? a : b);
 }
 
 __device__ __forceinline__ float nan_to_num(float v) {
@@ -123,38 +140,48 @@ __device__ void solve3x3(const float a[3][3], const float bb[3], float* x0,
   *x0 = ((b0 - row0[2] * *x2) - row0[1] * *x1) / row0[0];
 }
 
-// NMS, finite differences, pivoted solve and edge test at one pixel:
-// the pixel's value sits at index ci of the three IW-wide shared tiles
-// sl / sc / sh (low, cur, high), whose 1-px neighbourhood is in the
-// tiles too.  b0, b1, b2, val are raw (NaN where the solve is
+#define AT(a, dr, dc) a[ci + (dr) * IW + (dc)]
+
+// Strict 3x3x3 NMS at one pixel: the pixel's value sits at index ci of
+// the three IW-wide shared tiles sl / sc / sh (low, cur, high), whose
+// 1-px neighbourhood is in the tiles too.  fmaxf / fminf drop NaN, so
+// one flag over the 27 values stands in for jnp.maximum's propagation:
+// a NaN anywhere made the plain version's max NaN and both tests false.
+__device__ __forceinline__ bool nms_cand(const float* sl, const float* sc,
+                                         const float* sh, int ci, int IW,
+                                         const Params& p) {
+  const float c = AT(sc, 0, 0);
+  float mx = c, mn = c;
+  bool nan = isnan(c);
+#pragma unroll
+  for (int dr = -1; dr <= 1; ++dr)
+#pragma unroll
+    for (int dc = -1; dc <= 1; ++dc) {
+      const float a = AT(sl, dr, dc), b = AT(sh, dr, dc);
+      mx = fmaxf(mx, fmaxf(a, b));
+      mn = fminf(mn, fminf(a, b));
+      nan = nan | isnan(a) | isnan(b);
+      if (dr != 0 || dc != 0) {
+        const float v = AT(sc, dr, dc);
+        mx = fmaxf(mx, v);
+        mn = fminf(mn, v);
+        nan = nan | isnan(v);
+      }
+    }
+  return !nan && (((c > p.pos_thr) && (c >= mx)) ||
+                  ((c < p.neg_thr) && (c <= mn)));
+}
+
+// Finite differences, pivoted solve and val at one pixel (indexing as
+// nms_cand).  b0, b1, b2, val are raw (NaN where the solve is
 // singular); the callers sanitise them.
-struct PixelMaps {
-  float b0, b1, b2, val;
-  bool cand, edge_bad, nan_flag;
+struct Fit {
+  float b0, b1, b2, val, dxx, dyy, dxy;
 };
 
-__device__ __forceinline__ PixelMaps pixel_maps(const float* sl,
-                                                const float* sc,
-                                                const float* sh, int ci,
-                                                int IW, const Params& p) {
-#define AT(a, dr, dc) a[ci + (dr) * IW + (dc)]
+__device__ __forceinline__ Fit fit_at(const float* sl, const float* sc,
+                                      const float* sh, int ci, int IW) {
   const float c = AT(sc, 0, 0);
-
-  float mx = c, mn = c;
-  for (int dr = -1; dr <= 1; ++dr)
-    for (int dc = -1; dc <= 1; ++dc) {
-      mx = nmax(mx, AT(sl, dr, dc));
-      mn = nmin(mn, AT(sl, dr, dc));
-      if (dr != 0 || dc != 0) {
-        mx = nmax(mx, AT(sc, dr, dc));
-        mn = nmin(mn, AT(sc, dr, dc));
-      }
-      mx = nmax(mx, AT(sh, dr, dc));
-      mn = nmin(mn, AT(sh, dr, dc));
-    }
-  const bool cand = ((c > p.pos_thr) && (c >= mx)) ||
-                    ((c < p.neg_thr) && (c <= mn));
-
   const float dxx = (AT(sc, 0, -1) - 2.0f * c) + AT(sc, 0, 1);
   const float dyy = (AT(sc, -1, 0) - 2.0f * c) + AT(sc, 1, 0);
   const float dss = (AT(sl, 0, 0) - 2.0f * c) + AT(sh, 0, 0);
@@ -169,126 +196,184 @@ __device__ __forceinline__ PixelMaps pixel_maps(const float* sl,
   const float ds = 0.5f * (AT(sh, 0, 0) - AT(sl, 0, 0));
   const float A[3][3] = {{dxx, dxy, dxs}, {dxy, dyy, dys}, {dxs, dys, dss}};
   const float rhs[3] = {-dx, -dy, -ds};
-  float b0, b1, b2;
-  solve3x3(A, rhs, &b0, &b1, &b2);
-  const float val = c + 0.5f * ((dx * b0 + dy * b1) + ds * b2);
-
-  const float edge_den = dxx * dyy - dxy * dxy;
-  const float edge_score = ((dxx + dyy) * (dxx + dyy)) / edge_den;
-  const bool edge_bad = (edge_score >= p.edge_thr) || (edge_score < 0.0f);
-  const bool nan_flag = isnan(b0) || isnan(b1) || isnan(b2);
-#undef AT
-  PixelMaps m;
-  m.b0 = b0;
-  m.b1 = b1;
-  m.b2 = b2;
-  m.val = val;
-  m.cand = cand;
-  m.edge_bad = edge_bad;
-  m.nan_flag = nan_flag;
+  Fit m;
+  solve3x3(A, rhs, &m.b0, &m.b1, &m.b2);
+  m.val = c + 0.5f * ((dx * m.b0 + dy * m.b1) + ds * m.b2);
+  m.dxx = dxx;
+  m.dyy = dyy;
+  m.dxy = dxy;
   return m;
 }
+#undef AT
 
-__global__ void detect_walk_kernel(
-    const float* __restrict__ low, const float* __restrict__ cur,
-    const float* __restrict__ high, const float* __restrict__ blur,
-    long long s_low, long long s_cur, long long s_high, long long s_blur,
+__device__ __forceinline__ bool nan_of(const Fit& m) {
+  return isnan(m.b0) || isnan(m.b1) || isnan(m.b2);
+}
+
+__device__ __forceinline__ bool edge_bad_of(const Fit& m, const Params& p) {
+  const float edge_den = m.dxx * m.dyy - m.dxy * m.dxy;
+  const float edge_score = ((m.dxx + m.dyy) * (m.dxx + m.dyy)) / edge_den;
+  return (edge_score >= p.edge_thr) || (edge_score < 0.0f);
+}
+
+// The walk's record of one pixel at image (gr, gc): stop, stop-accept
+// and the step (_walk_dense's move, border, shift and weak tests).
+__device__ __forceinline__ uint8_t walk_record(const Fit& m, int gr, int gc,
+                                               int H, int W,
+                                               const Params& p) {
+  const bool nan_flag = nan_of(m);
+  const float cb0 = nan_to_num(m.b0), cb1 = nan_to_num(m.b1);
+  const float cb2 = nan_to_num(m.b2), cval = nan_to_num(m.val);
+  const bool mpx = cb0 > p.max_shift, mnx = cb0 < -p.max_shift;
+  const bool mpy = cb1 > p.max_shift, mny = cb1 < -p.max_shift;
+  const bool border_bad = (mpx && !(gc < W - p.safety)) ||
+                          (mnx && !(gc > p.safety)) ||
+                          (mpy && !(gr < H - p.safety)) ||
+                          (mny && !(gr > p.safety));
+  const int stc = (mpx ? 1 : 0) + (mnx ? -1 : 0);
+  const int str = (mpy ? 1 : 0) + (mny ? -1 : 0);
+  const bool moved = stc != 0 || str != 0;
+  const bool stop = nan_flag || border_bad || !moved;
+  const bool shift_bad = fabsf(cb0) > p.shift_lim ||
+                         fabsf(cb1) > p.shift_lim ||
+                         fabsf(cb2) > p.shift_lim;
+  const bool weak = fabsf(cval) < p.final_thr;
+  const bool stop_ok = !nan_flag && !border_bad && !shift_bad && !weak;
+  return (uint8_t)((stop ? F_STOP : 0) | (stop_ok ? F_STOPOK : 0) |
+                   ((str + 1) << 4) | ((stc + 1) << 6));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Tile geometry of K2 for TW output columns and a walk reach (halo) of
+// `halo` px: the three input tiles are rows of this many floats,
+// starting at the 16-byte aligned column at or left of c0 - halo - 1.
+__host__ __device__ __forceinline__ int walk_tile_iw(int TW, int halo) {
+  // worst-case column offset 3, the stencils' 2 px, rounded up to 4
+  return (3 + TW + 2 * halo + 2 + 3) & ~3;
+}
+
+// One block: a WTH x WTW output tile of one level of one image.
+__global__ void __launch_bounds__(WTHREADS) detect_walk_kernel(
+    const float* __restrict__ resps, const float* __restrict__ blurs,
+    long long r_sb, long long r_sl, long long b_sb, long long b_sl,
     uint8_t* __restrict__ ok_out, int32_t* __restrict__ cell_out,
-    float* __restrict__ tab_out, uint8_t* __restrict__ cand_out, int H,
-    int W, Params p) {
-  extern __shared__ float sm[];
-  const int HALO = p.iters - 1;        // walk reach
-  const int RH = TH + 2 * HALO, RW = TW + 2 * HALO;
-  const int IH = RH + 2, IW = RW + 2;  // + the stencils' 1-px reach
+    float* __restrict__ tab_out, uint8_t* __restrict__ cand_out, int nl,
+    int H, int W, int vec, Params p) {
+  extern __shared__ __align__(16) float sm[];
+  const int HALO = p.iters - 1;  // walk reach
+  const int RH = WTH + 2 * HALO, RW = WTW + 2 * HALO;
+  const int IH = RH + 2, IW = walk_tile_iw(WTW, HALO);
   float* sl = sm;
   float* sc = sl + IH * IW;
   float* sh = sc + IH * IW;
-  uint8_t* flag = (uint8_t*)(sh + IH * IW);
-  uint8_t* move = flag + RH * RW;
+  uint8_t* rec = (uint8_t*)(sh + IH * IW);
 
-  const int n = blockIdx.z;
-  const float* lo = low + n * s_low;
-  const float* cu = cur + n * s_cur;
-  const float* hi = high + n * s_high;
-  const float* bl = blur + n * s_blur;
-  const size_t out_plane = (size_t)n * H * W;
-  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nt = blockDim.x * blockDim.y;
+  const int lvl = blockIdx.x % nl;  // detection level lvl + 1 of the ladder
+  const int r0 = blockIdx.y * WTH, c0 = (blockIdx.x / nl) * WTW;
+  const int b = blockIdx.z;
+  const float* lo = resps + b * r_sb + lvl * r_sl;
+  const float* cu = lo + r_sl;
+  const float* hi = cu + r_sl;
+  const float* bl = blurs + b * b_sb + (lvl + 1) * b_sl;
+  const size_t HW = (size_t)H * W;
+  const size_t plane = (size_t)b * nl + lvl;
+  const int tid = threadIdx.x;
+  const int cs = (c0 - HALO - 1) & ~3;  // aligned first tile column
+  const int xoff = c0 - HALO - 1 - cs;
 
-  for (int e = tid; e < IH * IW; e += nt) {
-    const int rr = e / IW, cc = e - (e / IW) * IW;
-    const int gr = clampi(r0 - HALO - 1 + rr, 0, H - 1);
-    const int gc = clampi(c0 - HALO - 1 + cc, 0, W - 1);
-    const size_t g = (size_t)gr * W + gc;
-    sl[e] = lo[g];
-    sc[e] = cu[g];
-    sh[e] = hi[g];
+  const int nq = IW >> 2;
+  for (int e = tid; e < IH * nq; e += WTHREADS) {
+    const int rr = e / nq, k = e - (e / nq) * nq;
+    const size_t row = (size_t)clampi(r0 - HALO - 1 + rr, 0, H - 1) * W;
+    const int gc = cs + 4 * k;
+    const int d = rr * IW + 4 * k;
+    if (vec && gc >= 0 && gc + 3 < W) {
+      cp_async16(sl + d, lo + row + gc);
+      cp_async16(sc + d, cu + row + gc);
+      cp_async16(sh + d, hi + row + gc);
+    } else {
+      for (int i = 0; i < 4; ++i) {
+        const size_t g = row + clampi(gc + i, 0, W - 1);
+        sl[d + i] = lo[g];
+        sc[d + i] = cu[g];
+        sh[d + i] = hi[g];
+      }
+    }
   }
+  cp_async_wait_all();
   __syncthreads();
 
-  for (int e = tid; e < RH * RW; e += nt) {
-    const int rr = e / RW, cc = e - (e / RW) * RW;
-    const int gr = r0 - HALO + rr, gc = c0 - HALO + cc;
-    const PixelMaps m =
-        pixel_maps(sl, sc, sh, (rr + 1) * IW + (cc + 1), IW, p);
-    const bool keep = gr >= p.border && gr < H - p.border &&
-                      gc >= p.border && gc < W - p.border;
-    const float cb0 = nan_to_num(m.b0), cb1 = nan_to_num(m.b1);
-    const float cb2 = nan_to_num(m.b2), cval = nan_to_num(m.val);
-
-    const bool mpx = cb0 > p.max_shift, mnx = cb0 < -p.max_shift;
-    const bool mpy = cb1 > p.max_shift, mny = cb1 < -p.max_shift;
-    const bool border_bad = (mpx && !(gc < W - p.safety)) ||
-                            (mnx && !(gc > p.safety)) ||
-                            (mpy && !(gr < H - p.safety)) ||
-                            (mny && !(gr > p.safety));
-    const int stc = (mpx ? 1 : 0) + (mnx ? -1 : 0);
-    const int str = (mpy ? 1 : 0) + (mny ? -1 : 0);
-    const bool moved = stc != 0 || str != 0;
-    const bool stop = m.nan_flag || border_bad || !moved;
-    const bool shift_bad = fabsf(cb0) > p.shift_lim ||
-                           fabsf(cb1) > p.shift_lim ||
-                           fabsf(cb2) > p.shift_lim;
-    const bool weak = fabsf(cval) < p.final_thr;
-    const bool stop_ok = !m.nan_flag && !border_bad && !shift_bad && !weak;
-
-    flag[e] = (stop ? F_STOP : 0) | (stop_ok ? F_STOPOK : 0) |
-              (m.cand && keep ? F_CAND : 0) | (m.edge_bad ? F_EDGE : 0);
-    move[e] = (uint8_t)((str + 1) | ((stc + 1) << 2));
-
-    if (rr >= HALO && rr < HALO + TH && cc >= HALO && cc < HALO + TW &&
-        gr < H && gc < W) {
+  // output pixels: record, NMS, edge test, table and cand
+  for (int e = tid; e < WTH * WTW; e += WTHREADS) {
+    const int tr = e / WTW, tc = e % WTW;
+    const int gr = r0 + tr, gc = c0 + tc;
+    const int ri = tr + HALO, ci = tc + HALO;
+    const int si = (ri + 1) * IW + ci + 1 + xoff;
+    const Fit m = fit_at(sl, sc, sh, si, IW);
+    uint8_t f = walk_record(m, gr, gc, H, W, p);
+    if (gr < H && gc < W) {
+      const bool keep = gr >= p.border && gr < H - p.border &&
+                        gc >= p.border && gc < W - p.border;
+      const bool cand = keep && nms_cand(sl, sc, sh, si, IW, p);
+      f |= (cand ? F_CAND : 0) | (edge_bad_of(m, p) ? F_EDGE : 0);
       const size_t g = (size_t)gr * W + gc;
       const float lb = bl[g - (gc > 0 ? 1 : 0)];
       const float cbv = bl[g];
       const float rb = bl[g + (gc < W - 1 ? 1 : 0)];
-      float* t = tab_out + (out_plane + g) * 5;
-      t[0] = cb0;
-      t[1] = cb1;
-      t[2] = cb2;
-      t[3] = cval;
-      t[4] = (lb - 2.0f * cbv) + rb;
-      cand_out[out_plane + g] = (m.cand && keep) ? 1 : 0;
+      float* t = tab_out + plane * 5 * HW + g;
+      t[0] = nan_to_num(m.b0);
+      t[HW] = nan_to_num(m.b1);
+      t[2 * HW] = nan_to_num(m.b2);
+      t[3 * HW] = nan_to_num(m.val);
+      t[4 * HW] = (lb - 2.0f * cbv) + rb;
+      cand_out[plane * HW + g] = cand ? 1 : 0;
     }
+    rec[ri * RW + ci] = f;
+  }
+
+  // the halo ring: the walk's records alone
+  const int ring_tb = 2 * HALO * RW;
+  for (int e = tid; e < ring_tb + 2 * HALO * WTH; e += WTHREADS) {
+    int ri, ci;
+    if (e < ring_tb) {
+      ri = e / RW;
+      ci = e - ri * RW;
+      if (ri >= HALO) ri += WTH;
+    } else {
+      const int e2 = e - ring_tb, k = e2 % (2 * HALO);
+      ri = HALO + e2 / (2 * HALO);
+      ci = k < HALO ? k : WTW + k;
+    }
+    const int si = (ri + 1) * IW + ci + 1 + xoff;
+    rec[ri * RW + ci] = walk_record(fit_at(sl, sc, sh, si, IW),
+                                    r0 - HALO + ri, c0 - HALO + ci, H, W, p);
   }
   __syncthreads();
 
-  for (int e = tid; e < TH * TW; e += nt) {
-    const int tr = e / TW, tc = e - (e / TW) * TW;
+  for (int e = tid; e < WTH * WTW; e += WTHREADS) {
+    const int tr = e / WTW, tc = e % WTW;
     const int gr = r0 + tr, gc = c0 + tc;
     if (gr >= H || gc >= W) continue;
     int qr = gr, qc = gc;
     for (int it = 0; it < p.iters - 1; ++it) {
-      const int li = (qr - r0 + HALO) * RW + (qc - c0 + HALO);
-      if (flag[li] & F_STOP) break;
-      const int m = move[li];
-      qr = clampi(qr + (m & 3) - 1, 0, H - 1);
-      qc = clampi(qc + ((m >> 2) & 3) - 1, 0, W - 1);
+      const uint8_t f = rec[(qr - r0 + HALO) * RW + (qc - c0 + HALO)];
+      if (f & F_STOP) break;
+      qr = clampi(qr + ((f >> 4) & 3) - 1, 0, H - 1);
+      qc = clampi(qc + ((f >> 6) & 3) - 1, 0, W - 1);
     }
-    const uint8_t f0 = flag[(tr + HALO) * RW + (tc + HALO)];
-    const uint8_t ff = flag[(qr - r0 + HALO) * RW + (qc - c0 + HALO)];
-    const size_t g = out_plane + (size_t)gr * W + gc;
+    const uint8_t f0 = rec[(tr + HALO) * RW + (tc + HALO)];
+    const uint8_t ff = rec[(qr - r0 + HALO) * RW + (qc - c0 + HALO)];
+    const size_t g = plane * HW + (size_t)gr * W + gc;
     ok_out[g] = ((f0 & F_CAND) && !(f0 & F_EDGE) && (ff & F_STOPOK)) ? 1 : 0;
     cell_out[g] = qr * W + qc;
   }
@@ -328,30 +413,34 @@ __global__ void detect_maps_kernel(
 
   const int gr = r0 + threadIdx.y, gc = c0 + threadIdx.x;
   if (gr >= H || gc >= W) return;
-  const PixelMaps m = pixel_maps(
-      sl, sc, sh, (threadIdx.y + 1) * IW + (threadIdx.x + 1), IW, p);
+  const int ci = (threadIdx.y + 1) * IW + (threadIdx.x + 1);
+  const Fit m = fit_at(sl, sc, sh, ci, IW);
   const bool keep = gr >= p.border && gr < H - p.border &&
                     gc >= p.border && gc < W - p.border;
+  const bool cand = nms_cand(sl, sc, sh, ci, IW, p);
   const size_t g = (size_t)n * H * W + (size_t)gr * W + gc;
   maps_out[g] = make_float4(nan_to_num(m.b0), nan_to_num(m.b1),
                             nan_to_num(m.b2), nan_to_num(m.val));
-  nan_out[g] = m.nan_flag ? 1 : 0;
-  edge_out[g] = m.edge_bad ? 1 : 0;
-  mask_out[g] = (m.cand && keep) ? 1 : 0;
+  nan_out[g] = nan_of(m) ? 1 : 0;
+  edge_out[g] = edge_bad_of(m, p) ? 1 : 0;
+  mask_out[g] = (cand && keep) ? 1 : 0;
 }
 
-// low/cur/high/blur: n (H, W) float planes, plane k of each at
-// base + k * stride (elements; rows contiguous).  Outputs are
-// contiguous: ok (n,H,W) u8, cell (n,H,W) i32, tab (n,H,W,5) f32,
-// cand (n,H,W) u8.  Returns cudaGetLastError().
-extern "C" int hesaff_detect_walk(
-    const float* low, const float* cur, const float* high, const float* blur,
-    long long s_low, long long s_cur, long long s_high, long long s_blur,
-    uint8_t* ok, int32_t* cell, float* tab, uint8_t* cand, int n, int H,
-    int W, int border, float pos_thr, float neg_thr, float edge_thr,
-    float max_shift, int safety, int iters, float shift_lim,
-    float final_thr, void* stream) {
-  if (iters < 1 || iters > 16) return (int)cudaErrorInvalidValue;
+// K2 entry: every detection level of one octave.  resps: B x L (H, W)
+// float DoH planes, plane (b, l) at resps + b * r_sb + l * r_sl
+// (elements; rows contiguous), L >= nl + 2; blurs likewise with
+// b_sb / b_sl, L >= nl + 1.  Detection level l (1-based) reads resps l-1,
+// l, l+1 and blur l.  Outputs are contiguous: ok (B,nl,H,W) u8, cell
+// (B,nl,H,W) i32, tab (B,nl,5,H,W) f32 = [b0, b1, b2, val, Lxx] planes,
+// cand (B,nl,H,W) u8.  Returns cudaGetLastError().
+extern "C" int hesaff_detect_walk_octave(
+    const float* resps, const float* blurs, long long r_sb, long long r_sl,
+    long long b_sb, long long b_sl, uint8_t* ok, int32_t* cell, float* tab,
+    uint8_t* cand, int B, int nl, int H, int W, int border, float pos_thr,
+    float neg_thr, float edge_thr, float max_shift, int safety, int iters,
+    float shift_lim, float final_thr, void* stream) {
+  if (iters < 1 || iters > 16 || nl < 1 || B < 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.border = border;
   p.safety = safety;
@@ -363,22 +452,30 @@ extern "C" int hesaff_detect_walk(
   p.shift_lim = shift_lim;
   p.final_thr = final_thr;
   const int halo = iters - 1;
-  const size_t rec = (size_t)(TH + 2 * halo) * (TW + 2 * halo);
-  const size_t inp = (size_t)(TH + 2 * halo + 2) * (TW + 2 * halo + 2);
-  const size_t shmem = 3 * inp * sizeof(float) + 2 * rec;
-  dim3 block(32, 8);
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, n);
-  detect_walk_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      low, cur, high, blur, s_low, s_cur, s_high, s_blur, ok, cell, tab,
-      cand, H, W, p);
+  const size_t rec = (size_t)(WTH + 2 * halo) * (WTW + 2 * halo);
+  const size_t inp = (size_t)(WTH + 2 * halo + 2) * walk_tile_iw(WTW, halo);
+  const size_t shmem = 3 * inp * sizeof(float) + rec;
+  cudaError_t err = cudaFuncSetAttribute(
+      detect_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shmem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte copies need every plane's rows on 16-byte boundaries
+  const int vec = ((uintptr_t)resps % 16 == 0) && r_sb % 4 == 0 &&
+                  r_sl % 4 == 0 && W % 4 == 0;
+  const long long tiles_x = (W + WTW - 1) / WTW;
+  if (tiles_x * nl > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(tiles_x * nl), (H + WTH - 1) / WTH, B);
+  detect_walk_kernel<<<grid, WTHREADS, shmem, (cudaStream_t)stream>>>(
+      resps, blurs, r_sb, r_sl, b_sb, b_sl, ok, cell, tab, cand, nl, H, W,
+      vec, p);
   return (int)cudaGetLastError();
 }
 
-// K3 entry.  low/cur/high: n (H, W) float planes as for
-// hesaff_detect_walk.  Outputs are contiguous: maps (n,H,W,4) f32 =
-// [b0, b1, b2, val] with NaN -> 0 and +-inf -> +-FLT_MAX (16-byte
-// aligned), nan / edge / mask (n,H,W) one byte each.  Returns
-// cudaGetLastError().
+// K3 entry.  low/cur/high: n (H, W) float planes, plane k of each at
+// base + k * stride (elements; rows contiguous).  Outputs are
+// contiguous: maps (n,H,W,4) f32 = [b0, b1, b2, val] with NaN -> 0 and
+// +-inf -> +-FLT_MAX (16-byte aligned), nan / edge / mask (n,H,W) one
+// byte each.  Returns cudaGetLastError().
 extern "C" int hesaff_detect_maps(
     const float* low, const float* cur, const float* high, long long s_low,
     long long s_cur, long long s_high, float* maps, uint8_t* nan_flag,

@@ -3,10 +3,10 @@
 Port of ``hesaff_tpu/detect.py``.  ``detect_octave_batch`` takes one of
 two paths per octave, by the JAX package's rule:
 
-- dense (octaves under 2^23 px, detect_octave_dense): per detection
-  level the fused kernel K2 (ops/cuda_detect.detect_walk) gives, for
-  every pixel, whether a keypoint starting there is accepted and the
-  final cell of its localisation walk.  Then one per-image
+- dense (octaves under 2^23 px, detect_octave_dense): one launch of the
+  fused kernel K2 (ops/cuda_detect.detect_walk_octave) gives, for every
+  pixel of every detection level, whether a keypoint starting there is
+  accepted and the final cell of its localisation walk.  Then one per-image
   compaction over the (3, H, W) accepted mask in level-major raster
   order (the reference's scan order) to the octave's affine capacity, a
   fetch of (b0, b1, b2, val, Lxx) at the final cells, and the octaveMap
@@ -375,24 +375,15 @@ def detect_octave_dense(resps, blurs, sig, pd: float, cfg: HesaffConfig,
     nl = cfg.num_scales
     acap = cfg.affine_capacity(H, W, octave)
 
-    oks, cells, tabs = [], [], []
-    n_cand = torch.zeros(B, dtype=torch.int64, device=resps.device)
-    for l in range(1, nl + 1):
-        ok, cell, tab, cand = cuda_detect.detect_walk(
-            resps[:, l - 1], resps[:, l], resps[:, l + 1], blurs[:, l], cfg)
-        oks.append(ok)
-        cells.append(cell)
-        tabs.append(tab)
-        n_cand += cand.reshape(B, -1).sum(dim=1)
-    ok_all = torch.stack(oks, dim=1).reshape(B, nl * HW)
-    cell_all = torch.stack(cells, dim=1).reshape(B, nl * HW)
-    tab_all = torch.stack(tabs, dim=1).reshape(B, nl * HW, 5)
-
-    idx, valid, overflow = compact_rows(ok_all, acap)
+    ok, cell, tab, cand = cuda_detect.detect_walk_octave(resps, blurs, cfg)
+    n_cand = cand.reshape(B, -1).sum(dim=1)
+    idx, valid, overflow = compact_rows(ok.reshape(B, nl * HW), acap)
     level0 = idx // HW
-    cellk = cell_all.gather(1, idx).long()
-    rec = tab_all.gather(
-        1, (level0 * HW + cellk)[..., None].expand(B, acap, 5))
+    cellk = cell.reshape(B, nl * HW).gather(1, idx).long()
+    # the table's five planes of level0 at the final cell
+    chan = torch.arange(5, device=idx.device) * HW
+    at = ((level0 * (5 * HW) + cellk)[..., None] + chan).reshape(B, -1)
+    rec = tab.reshape(B, nl * 5 * HW).gather(1, at).reshape(B, acap, 5)
     b0k, b1k, b2k, valk, lxxk = rec.unbind(-1)
     rf = cellk // W
     cf = cellk - rf * W

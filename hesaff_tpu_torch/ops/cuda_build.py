@@ -7,10 +7,16 @@ and ``ctypes`` loads it.  Nothing is built when the package is imported.
 A failed build raises; there is no fallback.
 
 Flags: ``--fmad=false`` keeps nvcc from contracting a*b+c into one
-fused multiply-add.  The kernels' plain PyTorch versions round every
-product and sum separately, and the detect walk must agree with its
-plain version bit for bit (an ulp in the 3x3 solve can flip a walk
-decision), so every kernel is built the same way.
+fused multiply-add, for every source.  The kernels' plain PyTorch
+versions round every product and sum separately.  The detect walk must
+agree with its plain version bit for bit (an ulp in the 3x3 solve can
+flip a walk decision), and the patch kernel's sample coordinates and
+their floor decide its bad flags, which must equal the plain version's:
+a contracted coordinate can flip a floor at a border.  Per-source flags
+would not separate those from the arithmetic that may contract, so the
+patch kernel takes its contraction from explicit ``fmaf()`` in its two
+products only (the patch is not bit-equal to its plain version anyway:
+that one multiplies with ``torch.bmm``).
 """
 
 from __future__ import annotations

@@ -1,17 +1,19 @@
-"""One detection level: CUDA kernels and their plain versions.
+"""Detection levels: CUDA kernels and their plain versions.
 
 Two kernels of csrc/detect_walk.cu, each replacing a TPU kernel of
 ``hesaff_tpu/ops/pallas_detect.py``:
 
-- ``detect_walk`` (K2, detect_walk_pallas): strict 3x3x3 NMS, the dense
-  3x3 localisation solve, the edge and NaN tests and the bounded walk
-  from every pixel; the dense detection path.
-- ``detect_maps`` (K3, detect_maps_pallas): the same NMS and maps
-  without the walk; the sparse detection path and ``detect_level``.
+- ``detect_walk_octave`` (K2, detect_walk_pallas): for every detection
+  level of an octave in one launch, strict 3x3x3 NMS, the dense 3x3
+  localisation solve, the edge and NaN tests and the bounded walk from
+  every pixel; the dense detection path.
+- ``detect_maps`` (K3, detect_maps_pallas): the same NMS and maps of one
+  level without the walk; the sparse detection path and
+  ``detect_level``.
 
 A CPU tensor takes the plain PyTorch version (``detect.candidate_mask``
-+ ``_localization_maps``, then ``_walk_dense`` for K2); a CUDA tensor
-launches the kernel or raises.
++ ``_localization_maps``, then ``_walk_dense`` for K2, level by level);
+a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -38,7 +40,13 @@ def detect_maps_plain(low, cur, high, cfg):
 
 
 def detect_walk_plain(low, cur, high, blur, cfg):
-    """Plain PyTorch version of detect_walk (same outputs)."""
+    """Plain PyTorch walk of one detection level: low/cur/high (N, H, W)
+    DoH planes of levels l-1, l, l+1, blur (N, H, W) of level l.
+
+    Returns (ok (N,H,W) bool, cell (N,H,W) int32 final cell r*W+c of each
+    start pixel's walk, tab (N,H,W,5) float32 = [b0, b1, b2, val, Lxx],
+    cand (N,H,W) bool NMS candidates inside the border window).
+    """
     from hesaff_tpu_torch import detect
 
     clean, nan_flag, edge_bad, cand = detect_maps_plain(low, cur, high, cfg)
@@ -49,20 +57,35 @@ def detect_walk_plain(low, cur, high, blur, cfg):
     return ok, cell, tab, cand
 
 
-def detect_walk(low, cur, high, blur, cfg):
-    """low/cur/high: (N, H, W) DoH planes of levels l-1, l, l+1; blur:
-    (N, H, W) blur of level l.  Rows must be contiguous; planes may be
-    strided views.
+def detect_walk_octave_plain(resps, blurs, cfg):
+    """Plain PyTorch version of detect_walk_octave (same outputs): the
+    per-level walk of every detection level, stacked."""
+    levels = [detect_walk_plain(resps[:, l - 1], resps[:, l],
+                                resps[:, l + 1], blurs[:, l], cfg)
+              for l in range(1, cfg.num_scales + 1)]
+    ok, cell, tab, cand = (torch.stack(v, dim=1) for v in zip(*levels))
+    return ok, cell, tab.permute(0, 1, 4, 2, 3).contiguous(), cand
 
-    Returns (ok (N,H,W) bool, cell (N,H,W) int32 final cell r*W+c of each
-    start pixel's walk, tab (N,H,W,5) float32 = [b0, b1, b2, val, Lxx],
-    cand (N,H,W) bool NMS candidates inside the border window).
+
+def detect_walk_octave(resps, blurs, cfg):
+    """Every detection level of an octave.
+
+    resps: (B, L, H, W) DoH ladder with L >= num_scales + 2; blurs: (B,
+    L', H, W) blur ladder with L' >= num_scales + 1.  Rows must be
+    contiguous; images and levels may be strided.  Detection level l
+    (1-based) reads resps l-1, l, l+1 and blur l.
+
+    Returns, for nl = num_scales levels: ok (B,nl,H,W) bool, cell
+    (B,nl,H,W) int32 final cell r*W+c of each start pixel's walk, tab
+    (B,nl,5,H,W) float32 planes [b0, b1, b2, val, Lxx], cand (B,nl,H,W)
+    bool NMS candidates inside the border window.
     """
-    if cur.device.type == "cpu":
-        return detect_walk_plain(low, cur, high, blur, cfg)
-    if cur.device.type != "cuda":
-        raise ValueError(f"detect_walk: unsupported device {cur.device}")
-    return _launch(low, cur, high, blur, cfg)
+    if resps.device.type == "cpu":
+        return detect_walk_octave_plain(resps, blurs, cfg)
+    if resps.device.type != "cuda":
+        raise ValueError(
+            f"detect_walk_octave: unsupported device {resps.device}")
+    return _launch(resps, blurs, cfg)
 
 
 def detect_maps(low, cur, high, cfg):
@@ -118,32 +141,41 @@ def _launch_maps(low, cur, high, cfg):
     return (maps, *flags)
 
 
-def _launch(low, cur, high, blur, cfg):
+def _launch(resps, blurs, cfg):
     global LAUNCHES
-    _check_planes((low, cur, high, blur), "detect_walk")
-    N, H, W = cur.shape
-    dev = cur.device
-    ok = torch.empty((N, H, W), dtype=torch.uint8, device=dev)
-    cell = torch.empty((N, H, W), dtype=torch.int32, device=dev)
-    tab = torch.empty((N, H, W, 5), dtype=torch.float32, device=dev)
-    cand = torch.empty((N, H, W), dtype=torch.uint8, device=dev)
-    if N == 0:
+    nl = cfg.num_scales
+    B, _, H, W = resps.shape
+    for t, need in ((resps, nl + 2), (blurs, nl + 1)):
+        if (t.dtype != torch.float32 or t.ndim != 4 or t.shape[0] != B
+                or t.shape[1] < need or t.shape[2:] != (H, W)
+                or t.device != resps.device or t.stride(-1) != 1
+                or t.stride(-2) != W):
+            raise ValueError("detect_walk_octave: needs float32 (B, L, H, "
+                             "W) ladders with contiguous rows on one "
+                             "device")
+    dev = resps.device
+    ok = torch.empty((B, nl, H, W), dtype=torch.uint8, device=dev)
+    cell = torch.empty((B, nl, H, W), dtype=torch.int32, device=dev)
+    tab = torch.empty((B, nl, 5, H, W), dtype=torch.float32, device=dev)
+    cand = torch.empty((B, nl, H, W), dtype=torch.uint8, device=dev)
+    if B == 0 or H == 0 or W == 0:
         return ok.bool(), cell, tab, cand.bool()
-    fn = cuda_build.library("detect_walk").hesaff_detect_walk
+    fn = cuda_build.library("detect_walk").hesaff_detect_walk_octave
     fn.restype = ctypes.c_int
     vp, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
-    fn.argtypes = [vp] * 4 + [ll] * 4 + [vp] * 4 + [i] * 3 + [
-        i, f, f, f, f, i, i, f, f, vp]
+    fn.argtypes = [vp] * 2 + [ll] * 4 + [vp] * 4 + [i] * 5 + [
+        f, f, f, f, i, i, f, f, vp]
     with torch.cuda.device(dev):
-        err = fn(*(cuda_build.ptr(t) for t in (low, cur, high, blur)),
-                 *(t.stride(0) for t in (low, cur, high, blur)),
+        err = fn(cuda_build.ptr(resps), cuda_build.ptr(blurs),
+                 resps.stride(0), resps.stride(1), blurs.stride(0),
+                 blurs.stride(1),
                  *(cuda_build.ptr(t) for t in (ok, cell, tab, cand)),
-                 N, H, W, cfg.border, cfg.positive_threshold,
+                 B, nl, H, W, cfg.border, cfg.positive_threshold,
                  cfg.negative_threshold, cfg.edge_score_threshold,
                  cfg.max_subpixel_shift, cfg.point_safety_border,
                  cfg.localize_iterations, cfg.final_shift_limit,
                  cfg.final_threshold, cuda_build.stream())
-    cuda_build.check(err, "detect_walk")
+    cuda_build.check(err, "detect_walk_octave")
     LAUNCHES += 1
     return ok.bool(), cell, tab, cand.bool()

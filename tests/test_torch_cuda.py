@@ -7,14 +7,14 @@ they run as
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances are the kernels' (chip_smoke.py states the same): blur atol
-1e-4 and response atol 0.1; the walk exact (ok, cand, cells) with its
-field table at rtol 1e-6 / atol 1e-5; the maps kernel with equal mask,
-nan and edge flags and the maps at rtol 1e-6 / atol 1e-5 where the
-mask is set; the sparse octave path equal to its CPU run in every
-field but s (rtol 1e-6, the exp2 wobble); the affine loop under the 2%
-ok/iteration flip budget with U rtol 1e-4 / atol 5e-5; the patch kernel
-with equal bad flags and patches at atol 1e-3; SIFT within one step and
->= 99% exact.
+1e-4 and response atol 0.1; the octave-wide walk exact (ok, cand,
+cells) at every level with its field table at rtol 1e-6 / atol 1e-5 at
+every pixel; the maps kernel with equal mask, nan and edge flags and
+the maps at rtol 1e-6 / atol 1e-5 where the mask is set; the sparse
+octave path equal to its CPU run in every field but s (rtol 1e-6, the
+exp2 wobble); the affine loop under the 2% ok/iteration flip budget
+with U rtol 1e-4 / atol 5e-5; the patch kernel with equal bad flags
+and patches at atol 1e-3; SIFT within one step and >= 99% exact.
 """
 
 import os
@@ -59,21 +59,44 @@ def test_blur_doh_kernel(dev, shape, k):
     assert float((r - pr).abs().max()) <= 0.1
 
 
-@pytest.mark.parametrize("H,W", [(200, 240), (61, 45)])
-def test_detect_walk_kernel(dev, H, W):
+@pytest.mark.parametrize("H,W,iters,strided", [
+    (200, 240, 5, False), (61, 45, 5, False), (24, 131, 1, False),
+    (13, 64, 5, True), (70, 300, 1, True)])
+def test_detect_walk_kernel(dev, H, W, iters, strided):
+    """K2 over every detection level of an octave in one launch, against
+    its plain version: widths off the 32-column tile, heights under one
+    64-row tile, walks of 0 and 4 steps, and ladders that are strided
+    views (the 16-byte copy path where W % 4 == 0).  The table is
+    compared at every pixel, not only where ok is set."""
+    import dataclasses
+
     from hesaff_tpu_torch.ops import cuda_detect
 
+    cfg = dataclasses.replace(CFG, localize_iterations=iters)
     rng = np.random.default_rng(5)
-    planes = [torch.as_tensor(smooth_stacks(rng, 2, H, W) * 40.0,
-                              device=dev) for _ in range(4)]
-    ok, cell, tab, cand = cuda_detect.detect_walk(*planes, CFG)
-    pok, pcell, ptab, pcand = cuda_detect.detect_walk_plain(*planes, CFG)
+    L = cfg.num_scales + 2
+    resps = torch.as_tensor(smooth_stacks(rng, 2, L, H, W) * 40.0,
+                            device=dev)
+    blurs = torch.as_tensor(smooth_stacks(rng, 2, L, H, W), device=dev)
+    if strided:
+        wide = torch.zeros((2, L + 2, H, W), device=dev)
+        wide[:, 1:L + 1] = resps
+        resps = wide[:, 1:L + 1]
+    before = cuda_detect.LAUNCHES
+    ok, cell, tab, cand = cuda_detect.detect_walk_octave(resps, blurs, cfg)
+    pok, pcell, ptab, pcand = cuda_detect.detect_walk_octave_plain(
+        resps, blurs, cfg)
     torch.cuda.synchronize()
-    assert torch.equal(ok, pok) and torch.equal(cand, pcand)
-    assert torch.equal(cell[pok], pcell[pok])
-    np.testing.assert_allclose(tab[pok].cpu().numpy(),
-                               ptab[pok].cpu().numpy(), rtol=1e-6,
-                               atol=1e-5)
+    assert cuda_detect.LAUNCHES == before + 1
+    assert int(pcand.sum()) > 0
+    for l in range(cfg.num_scales):
+        m = pok[:, l]
+        assert torch.equal(ok[:, l], m) and torch.equal(cand[:, l],
+                                                        pcand[:, l])
+        assert torch.equal(cell[:, l], pcell[:, l])
+        np.testing.assert_allclose(tab[:, l].cpu().numpy(),
+                                   ptab[:, l].cpu().numpy(), rtol=1e-6,
+                                   atol=1e-5)
 
 
 @pytest.mark.parametrize("H,W", [(200, 240), (61, 45), (24, 2600)])
@@ -198,18 +221,28 @@ def _kernel_vs_plain(args):
     assert bool((pk[~args[-2]] == 0).all())
 
 
-@pytest.mark.parametrize("bucket,smin,smax", [
-    (49, 1.6, 4.2), (97, 4.5, 8.8), (193, 9.5, 18.0), (385, 19.0, 36.0)])
-def test_patches_group_kernel(dev, bucket, smin, smax):
+@pytest.mark.parametrize("bucket,smin,smax,K", [
+    (49, 1.6, 4.2, 96), (49, 0.9, 4.42, 384), (97, 4.5, 8.8, 96),
+    (97, 2.2, 9.0, 256), (193, 9.5, 18.0, 96), (385, 19.0, 36.0, 96)])
+def test_patches_group_kernel(dev, bucket, smin, smax, K):
+    """K5 against its plain version in each serving-path bucket; the
+    384-keypoint group-49 and 256-keypoint group-97 cases span their
+    bucket from under a third of it to the bucket's own workspace (the
+    geometries that hold the whole workspace in shared memory), with
+    active and inactive slots and blur widths below KMAX."""
     from hesaff_tpu_torch.ops import cuda_patches
 
-    rng = np.random.default_rng(bucket)
+    rng = np.random.default_rng(bucket + K)
     B, H, W = 2, 640, 800
     images = torch.as_tensor(smooth_stacks(rng, B, H, W), device=dev)
-    kp = _keypoints(rng, dev, 96, B, H, W, smin, smax)
+    kp = _keypoints(rng, dev, K, B, H, W, smin, smax)
     args, _ = cuda_patches.group_args(
         images, bucket, *(kp[k] for k in ("img_idx", "x", "y", "s", "a11",
                                           "a21", "a22")), CFG, kp["active"])
+    if K > 96:
+        ws, taps = args[7], args[9]
+        assert int(ws.min()) < bucket // 3 and int(ws.max()) == bucket
+        assert int((taps != 0).sum(1).min()) < taps.shape[1]
     _kernel_vs_plain(args)
 
 

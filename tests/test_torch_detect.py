@@ -38,7 +38,7 @@ def test_plain_walk_matches_jax_dense(H, W):
     lxx_ref = (n(jdet._shift_rep(blur, 0, -1)) - 2.0 * blur
                + n(jdet._shift_rep(blur, 0, 1)))
 
-    ok, cell, tab, cand = cuda_detect.detect_walk(
+    ok, cell, tab, cand = cuda_detect.detect_walk_plain(
         *(t(a)[None] for a in (low, cur, high, blur)), PCFG)
     ok, cell, tab, cand = n(ok[0]), n(cell[0]), n(tab[0]), n(cand[0])
 
@@ -50,6 +50,43 @@ def test_plain_walk_matches_jax_dense(H, W):
                               allm[..., 3], lxx_ref)):
         np.testing.assert_allclose(tab[..., ch][ok_ref], ref[ok_ref],
                                    rtol=1e-6, atol=1e-5)
+
+
+def test_plain_octave_walk_matches_jax_dense(golden_small):
+    """The octave-wide walk's plain version (every detection level in one
+    call, planar table) against JAX's per-level _level_maps +
+    _walk_dense on the 200x160 golden's octave 0 and its flip."""
+    g1 = golden_small["gray"]
+    imgs = jnp.asarray(np.stack([g1, np.ascontiguousarray(g1[::-1, ::-1])]))
+    first = jax.vmap(lambda im: jpyr.prepare_first_level(im, CFG)[0])(imgs)
+    o = jax.vmap(lambda f: jpyr.build_octave(f, 1.0, CFG))(first)
+    resps, blurs = n(o.resps), n(o.blurs)
+    ok, cell, tab, cand = (n(v) for v in cuda_detect.detect_walk_octave(
+        t(resps), t(blurs), PCFG))
+    nl = CFG.num_scales
+    assert ok.shape == (2, nl) + resps.shape[-2:]
+    assert tab.shape == (2, nl, 5) + resps.shape[-2:]
+    for b in range(2):
+        for l in range(1, nl + 1):
+            low, cur, high, blur = (resps[b, l - 1], resps[b, l],
+                                    resps[b, l + 1], blurs[b, l])
+            mask, allm = jdet._level_maps(*(jnp.asarray(a) for a in
+                                            (low, cur, high, blur)), CFG)
+            ok_ref, cell_ref = (n(v) for v in
+                                jdet._walk_dense(allm, mask, CFG))
+            allm = n(allm)
+            lxx_ref = (n(jdet._shift_rep(blur, 0, -1)) - 2.0 * blur
+                       + n(jdet._shift_rep(blur, 0, 1)))
+            np.testing.assert_array_equal(ok[b, l - 1], ok_ref)
+            np.testing.assert_array_equal(cand[b, l - 1], n(mask))
+            np.testing.assert_array_equal(cell[b, l - 1][ok_ref],
+                                          cell_ref[ok_ref])
+            for ch, ref in enumerate((allm[..., 0], allm[..., 1],
+                                      allm[..., 2], allm[..., 3], lxx_ref)):
+                np.testing.assert_allclose(tab[b, l - 1, ch][ok_ref],
+                                           ref[ok_ref], rtol=1e-6,
+                                           atol=1e-5)
+    assert ok.sum() > 50
 
 
 def test_octave_detection_matches_jax(golden_small):
