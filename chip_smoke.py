@@ -5,9 +5,13 @@
 
 Builds the CUDA kernels from hesaff_tpu_torch/csrc (phase 1), holds each
 of the six against its plain PyTorch version at the main path's shapes
-(phase 2; K2 in one launch over octave 0's detection levels, K5 on
-every group of the serving path, K3 on the octave-0 planes of phase 6's
-images), runs extract() on the 200x160 oracle golden (phase 3), and
+(phase 2; K1 bit-equal at the ladder's largest taps, at k=1, written
+into a stack slot and blur-only, with the octave-0 ladder timed as a
+whole; K2 in one launch over octave 0's detection levels, K5 on every
+group of the serving path, K6 on the real patches and through its
+masked uint8 entry on the serving slots, K3 on the octave-0 planes of
+phase 6's images), runs extract() on the 200x160 oracle golden (phase
+3), and
 drives both batch entry points on 16 synthetic 800x640 images (the
 bench imagery of bench.py): extract_batch (phase 4) and the grouped
 serving path dist.extraction_step_grouped with bench.py's group table
@@ -24,7 +28,8 @@ success the last line of standard output is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it holds the per-kernel record: launches in one
-phase-6 call (every kernel runs there) and in phases 4, 5 and 6, max
+phase-6 call (every kernel runs there) and in phases 4, 5 and 6
+(checked: K1 once a ladder level plus the initial blur, K6 once), max
 abs error against the plain version, the kernel's and the plain
 version's ms (one pair of CUDA events around back-to-back launches, 20
 of the kernel and 3 of the plain version, after a warm-up), and the
@@ -150,6 +155,20 @@ def dense_octaves(H: int, W: int, cfg) -> int:
                for o in range(cfg.num_octaves(H, W)))
 
 
+def check_k1_k6_launches(launches: dict, H: int, W: int, cfg,
+                         what: str) -> None:
+    """K1 launches once a ladder level (num_scales + 2 an octave, level 0
+    included) and once for the initial blur; K6 once a call."""
+    from hesaff_tpu_torch import pyramid
+
+    n = ((cfg.num_scales + 2) * cfg.num_octaves(H, W)
+         + (pyramid.first_level_taps(cfg) is not None))
+    check(launches["blur_doh"] == n, f"{what}: K1 launched "
+          f"{launches['blur_doh']} times, not {n}")
+    check(launches["sift_desc"] == 1, f"{what}: K6 launched "
+          f"{launches['sift_desc']} times, not once")
+
+
 def check_dense_launches(launches: dict, cfg, what: str) -> None:
     """An 800x640 batch runs every kernel but K3: its octaves are all
     under 2^23 px, so they take the dense walk, one K2 launch each."""
@@ -161,6 +180,7 @@ def check_dense_launches(launches: dict, cfg, what: str) -> None:
     n = dense_octaves(HEIGHT, WIDTH, cfg)
     check(launches["detect_walk"] == n, f"{what}: K2 launched "
           f"{launches['detect_walk']} times, not once per octave ({n})")
+    check_k1_k6_launches(launches, HEIGHT, WIDTH, cfg, what)
 
 
 def bench_config():
@@ -233,7 +253,8 @@ def phase_kernels(images, cfg, dev) -> dict:
     from hesaff_tpu_torch.affine_shape import adapt_args
     from hesaff_tpu_torch.batch import octave_affine_inputs
     from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, cuda_detect
-    from hesaff_tpu_torch.ops.hessian import norm2_of
+    from hesaff_tpu_torch.ops.blur import separable_blur
+    from hesaff_tpu_torch.ops.hessian import hessian_response, norm2_of
 
     rec = {}
     first, pd = pyramid.prepare_first_level(images, cfg)
@@ -248,13 +269,46 @@ def phase_kernels(images, cfg, dev) -> dict:
     er = float((kr - pr).abs().max())
     check(eb <= 1e-4, f"blur_doh blur max err {eb} > 1e-4")
     check(er <= 0.1, f"blur_doh resp max err {er} > 0.1")
+    check(bool(torch.equal(kb, pb) and torch.equal(kr, pr)),
+          f"blur_doh k={len(taps)}: not bit-equal to its plain version")
+    del kb, kr, pb, pr
+    # k=1 (level 0: a copy and its DoH) and a ladder level read from and
+    # written into slots of preallocated stacks, as build_octave runs them
+    L = cfg.num_scales + 2
+    blurs = first.new_empty(first.shape[:1] + (L,) + first.shape[1:])
+    resps = torch.full_like(blurs, -1.0)
+    cuda_blur.blur_doh(first, [1.0], norm2_of(sig[0] ** 2),
+                       out=blurs[:, 0], resp_out=resps[:, 0])
+    check(bool(torch.equal(blurs[:, 0], first) and torch.equal(
+        resps[:, 0], hessian_response(first, sig[0] ** 2))),
+        "blur_doh k=1: not a copy and the plain DoH of level 0")
+    t1 = pyramid.ladder_taps(cfg)[0]
+    cuda_blur.blur_doh(blurs[:, 0], t1, norm2_of(sig[1] ** 2),
+                       out=blurs[:, 1], resp_out=resps[:, 1])
+    sb_, sr_ = cuda_blur.blur_doh_plain(first, t1, norm2_of(sig[1] ** 2))
+    check(bool(torch.equal(blurs[:, 1], sb_) and torch.equal(resps[:, 1], sr_)
+               and bool((resps[:, 2:] == -1.0).all())),
+          f"blur_doh k={len(t1)} into a stack slot: not bit-equal, or "
+          "another slot written")
+    del blurs, resps, sb_, sr_
+    # blur-only: prepare_first_level's initial blur
+    ft = pyramid.first_level_taps(cfg)
+    check(bool(torch.equal(first, separable_blur(images, ft))),
+          f"blur (blur-only, k={len(ft)}): not bit-equal to separable_blur")
     ms = timed(lambda: cuda_blur.blur_doh(first, taps, norm2))
     pms = timed(lambda: cuda_blur.blur_doh_plain(first, taps, norm2), 3)
+    # the octave-0 ladder as phase A builds it: initial blur, level 0,
+    # four levels, each one K1 launch into its stack slot
+    lms = timed(lambda: pyramid.build_octave(
+        *pyramid.prepare_first_level(images, cfg), cfg))
     log(f"phase 2 blur_doh {tuple(first.shape)} k={len(taps)}: blur err "
-        f"{eb:.3g} (atol 1e-4), resp err {er:.3g} (atol 0.1); kernel "
-        f"{ms:.3f} ms, plain {pms:.3f} ms")
+        f"{eb:.3g} (atol 1e-4), resp err {er:.3g} (atol 0.1), bit-equal; "
+        f"k=1, k={len(t1)} into a stack slot and blur-only k={len(ft)} "
+        f"bit-equal; kernel {ms:.3f} ms, plain {pms:.3f} ms; octave-0 ladder "
+        f"(prepare_first_level + build_octave, {1 + L} launches) {lms:.3f} ms")
     # one read, two writes; a 2-pass blur (2 flops a tap) and the DoH
-    rec["blur_doh"] = dict(max_abs_err=er, ms=ms, plain_ms=pms, **bound(
+    rec["blur_doh"] = dict(max_abs_err=er, ms=ms, plain_ms=pms,
+                           octave0_ladder_ms=lms, **bound(
         3 * nbytes(first), first.numel() * (4 * len(taps) + 13)))
 
     # K2 on the real octave-0 ladders: one launch over every detection
@@ -362,6 +416,7 @@ def phase_group_kernels(images, cfg, rec) -> None:
     groups = dist.default_group_spec(HEIGHT, WIDTH, cfg, per_image_cap=1024,
                                      batch=BATCH)
     e5, ms, pms, b5, f5, kept = 0.0, 0.0, 0.0, 0, 0.0, []
+    slots, slot_ok = [], []
     for bsize, _, gi, a, valid, _ in dist.group_selections(flat, cfg, groups,
                                                            ncap):
         kp = (gi, *(a[k] for k in ("x", "y", "s", "a11", "a21", "a22")))
@@ -400,6 +455,8 @@ def phase_group_kernels(images, cfg, rec) -> None:
         f5 += float((10 * ws * ws + 2 * P * ws * band
                      + 2 * P * P * band).sum())
         kept.append(pk[ok])
+        slots.append(pk)
+        slot_ok.append(ok)
         log(f"phase 2 patches_group {what}: {int(valid.sum())} keypoints "
             f"in {valid.numel()} slots, ok {int(ok.sum())} (equal), max "
             f"err {err:.3g} (atol 1e-3); kernel {kms:.3f} ms, plain "
@@ -415,8 +472,21 @@ def phase_group_kernels(images, cfg, rec) -> None:
     exact = float((diff == 0).float().mean())
     check(e6 <= 1, f"sift_desc: max step {e6} > 1")
     check(exact >= 0.99, f"sift_desc: exact share {exact} < 0.99")
-    ms = timed(lambda: cuda_sift.sift_descriptors(pt, cfg))
-    pms = timed(lambda: sift.sift_descriptors(pt, cfg), 3)
+    # the serving path's form: one masked uint8 launch over every slot
+    # of the groups, as dist.describe_valid makes it
+    slots, slot_ok = torch.cat(slots), torch.cat(slot_ok)
+    m = cuda_sift.describe_masked(slots, slot_ok, cfg)
+    check(not bool(m[~slot_ok].any()), "describe_masked: a row of an "
+          "invalid slot is not zero")
+    check(bool(torch.equal(m[slot_ok], d.to(torch.uint8))),
+          "describe_masked: valid rows differ from the float entry's")
+    mdiff = (m[slot_ok].float() - r).abs()
+    check(float(mdiff.max()) <= 1 and float((mdiff == 0).float().mean())
+          >= 0.99, "describe_masked: valid rows off the plain version")
+    fms = timed(lambda: cuda_sift.sift_descriptors(pt, cfg))
+    ms = timed(lambda: cuda_sift.describe_masked(slots, slot_ok, cfg))
+    pms = timed(lambda: cuda_sift.describe_masked_plain(slots, slot_ok, cfg),
+                3)
     # what the function needs a patch: ~30 flops a pixel (normalise,
     # gradients, magnitude, atan2, the two-bin orientation split); the
     # row binning adds a pixel's 2 orientation values into its row's
@@ -431,11 +501,17 @@ def phase_group_kernels(images, cfg, rec) -> None:
     support = masks.circular_gauss_mask(P) > 0
     flops = K * (30 * P * P + 2 * 2 * int((support * nz[:, None]).sum())
                  + 2 * nb * no * int(nz.sum()))
+    # bytes: the valid patches read once, the valid flags and the uint8
+    # rows of every slot
     rec["sift_desc"] = dict(max_abs_err=e6, ms=ms, plain_ms=pms,
-                            **bound(nbytes(pt, d), flops))
+                            float_entry_ms=fms,
+                            **bound(nbytes(pt, slot_ok, m), flops))
     log(f"phase 2 sift_desc on {K} real patches: max step {e6:g} (<= 1), "
-        f"exact {exact:.4f} (>= 0.99); kernel {ms:.3f} ms, plain "
-        f"{pms:.3f} ms")
+        f"exact {exact:.4f} (>= 0.99), float entry {fms:.3f} ms; masked "
+        f"uint8 entry on the {slots.shape[0]} serving slots: invalid rows "
+        f"zero, valid rows = float entry, exact vs plain "
+        f"{float((mdiff == 0).float().mean()):.4f}; kernel {ms:.3f} ms, "
+        f"plain {pms:.3f} ms")
 
 
 def phase_maps_kernel(large, cfg, rec) -> None:
@@ -690,6 +766,7 @@ def phase_large(large_np, cfg, dev) -> dict:
     check(launches["detect_walk"] == n_dense,
           f"large: K2 launched {launches['detect_walk']} times, not once "
           f"per dense octave ({n_dense})")
+    check_k1_k6_launches(launches, H, W, cfg, "large")
     finite = all(np.isfinite(np.stack([f.x, f.y, f.s, f.a11, f.a12, f.a21,
                                        f.a22, f.response])).all()
                  for f in feats)

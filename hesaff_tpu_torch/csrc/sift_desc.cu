@@ -1,18 +1,40 @@
-// 128-D SIFT descriptors of normalised patches, one block per patch.
+// 128-D SIFT descriptors of normalised patches, one warp per patch.
 //
 // Replaces the TPU kernel hesaff_tpu/ops/pallas_sift.py:
 // sift_descriptors_pallas (pallas_sift.py:171, pallas_call at :198).
 //
-// What bounds it on an H100: neither side by much.  A patch is read
-// once (41 x 41 floats, 6.7 KB) and 128 floats are written; the work
-// per patch is ~1.7k gradient / atan2 evaluations and ~60k multiply-adds
-// of the separable trilinear binning.  The TPU kernel packed 128 patches
-// into the lanes of a transposed (pixel, patch) block and needed a
-// polynomial atan2 because its compiler has none; here a block owns one
-// patch in shared memory, uses atan2f, bins with the separable spatial
-// weights in two passes (rows, then columns) and reduces in fixed tree
-// order, with no atomics, so the result is deterministic.
-//
+// What bounds it on an H100: the work, not the bytes.  A patch is read
+// once (41 x 41 floats, 6.7 KB) and 128 bytes or floats are written,
+// against ~1.2k gradient / atan2 / orientation-split evaluations and
+// ~5k multiply-adds of binning a patch, with IEEE sqrt and division.
+// The TPU kernel packed 128 patches into the lanes of a transposed
+// (pixel, patch) block and needed a polynomial atan2; here:
+//   - one warp a patch, NW patches a block; the spatial weights and
+//     their non-zero ranges sit in shared memory once a block, which
+//     walks its patches in a loop (a persistent grid); no block barrier
+//     after set-up; mean, sigma and norms are warp shuffles; the patch
+//     comes in by cp.async, every load of it in flight at once;
+//   - the row binning is a gather over the non-zero band only: a lane
+//     owns a column (the central 32 columns, then the outer P - 32), the
+//     warp walks the support rows of that column group together, so
+//     neighbouring lanes read neighbouring words, and each lane adds its
+//     pixel's two orientation terms into the (at most two) row bins
+//     whose weight is not zero, in row order, into sums t[br, o, c] kept
+//     in its own memory bank (no conflicts, no atomics: deterministic).
+//     Every term of the full sum that is left out is an exact +0 and
+//     every term is >= 0, so t is bit-equal to the dense sum over all
+//     41 rows;
+//   - t is then transposed over the dead patch to an odd row stride, so
+//     that the column pass, a lane's 4 outputs (one column bin, four
+//     row bins) summed over that bin's non-zero columns in column
+//     order, reads 32 banks at once;
+//   - a masked entry reads a slot's patch only where its valid flag is
+//     set, writes uint8 rows and zero rows for the other slots, so the
+//     serving path needs no gather, scatter or host sync around it.
+// What holds it back (H100 measurements): issue slots and latency of
+// the row pass, ~62 warp steps a patch of which the outer group's 23
+// run 9 of 32 lanes, and the atan2, sqrt and division each step.
+
 // Semantics (sift.sift_descriptors, the plain version): mean and sigma
 // over the binary support of the circular mask (sigma < 1e-4 leaves the
 // patch unchanged), else clamp(128 + 50 (x - mean) / sigma, 0, 255);
@@ -28,140 +50,288 @@
 #include <math.h>
 #include <stdint.h>
 
-#define THREADS 128
+#define NW 4                 // warps (patches in flight) a block
+#define FULL 0xffffffffu
 
-__device__ float block_sum(float v, float* s_red) {
-  s_red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s)
-      s_red[threadIdx.x] = s_red[threadIdx.x] + s_red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const float total = s_red[0];
-  __syncthreads();
-  return total;
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v = v + __shfl_xor_sync(FULL, v, m);
+  return v;
 }
 
-__global__ void __launch_bounds__(THREADS) sift_kernel(
-    const float* __restrict__ patches, int P,
-    const float* __restrict__ circ, const float* __restrict__ spatial,
-    int sb, int ob, float n_support, float max_bin, float* __restrict__ out) {
+// Column of group g (0: the central 32 columns, 1: the P - 32 outer
+// ones) that `lane` owns, or -1.
+__device__ __forceinline__ int group_col(int g, int lane, int P) {
+  if (P <= 32) return g == 0 && lane < P ? lane : -1;
+  const int off = (P - 32) / 2;
+  if (g == 0) return off + lane;
+  if (lane >= P - 32) return -1;
+  return lane < off ? lane : lane + 32;
+}
+
+template <bool U8>
+__global__ void __launch_bounds__(NW * 32) sift_kernel(
+    const float* __restrict__ patches, const uint8_t* __restrict__ valid,
+    int K, int P, const float* __restrict__ circ,
+    const float* __restrict__ spatial, int sb, int ob, float n_support,
+    float max_bin, void* __restrict__ out) {
   extern __shared__ float sm[];
   const int PP = P * P;
   const int nb = sb * sb * ob;
-  float* s_x = sm;                     // PP
-  float* s_circ = s_x + PP;            // PP
-  float* s_val = s_circ + PP;          // PP: mask * magnitude
-  float* s_w1 = s_val + PP;            // PP: orientation split weight
-  float* s_W = s_w1 + PP;              // P x sb spatial weights
-  float* s_t = s_W + P * sb;           // sb x P x ob row-binned
-  float* s_red = s_t + sb * P * ob;    // THREADS
-  int* s_b0 = (int*)(s_red + THREADS); // PP: lower orientation bin
+  const int nq = sb * ob;                  // (row bin, orientation) pairs
+  const int n2 = P > 32 ? P - 32 : 0;      // columns of group 1
+  const int TT = nq + 1;                   // row stride of tT (odd)
+  const int XS = PP > P * TT ? PP : P * TT;
+  float* s_W = sm;                         // P x sb spatial weights
+  float* s_warp = s_W + P * sb;            // NW x (XS + nq * (32 + n2))
+  int* s_blo = (int*)(s_warp + NW * (XS + nq * (32 + n2)));
+  int* s_bhi = s_blo + P;                  // non-zero row bins of row r
+  int* s_clo = s_bhi + P;                  // non-zero columns of bin b
+  int* s_chi = s_clo + sb;
+  int* s_glo = s_chi + sb;                 // support rows of group g
+  int* s_ghi = s_glo + 2;
 
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* pin = patches + (size_t)k * PP;
-  for (int e = tid; e < PP; e += THREADS) {
-    s_x[e] = pin[e];
-    s_circ[e] = circ[e];
-  }
-  for (int e = tid; e < P * sb; e += THREADS) s_W[e] = spatial[e];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int e = tid; e < P * sb; e += NW * 32) s_W[e] = spatial[e];
   __syncthreads();
-
-  // photometric normalisation over the support disc
-  float a = 0.0f;
-  for (int e = tid; e < PP; e += THREADS)
-    a = a + (s_circ[e] > 0.0f ? s_x[e] : 0.0f);
-  const float mean = block_sum(a, s_red) / n_support;
-  a = 0.0f;
-  for (int e = tid; e < PP; e += THREADS) {
-    const float d = mean - s_x[e];
-    a = a + (s_circ[e] > 0.0f ? d * d : 0.0f);
+  for (int r = tid; r < P; r += NW * 32) {
+    int lo = sb, hi = -1;
+    for (int b = 0; b < sb; ++b)
+      if (s_W[r * sb + b] != 0.0f) { lo = min(lo, b); hi = b; }
+    s_blo[r] = lo;
+    s_bhi[r] = hi;
   }
-  const float sd = sqrtf(block_sum(a, s_red) / n_support);
-  if (!(sd < 0.0001f)) {
-    const float fac = 50.0f / sd;
-    for (int e = tid; e < PP; e += THREADS) {
-      const float v = 128.0f + fac * (s_x[e] - mean);
-      s_x[e] = v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v);
-    }
-  }
-  __syncthreads();
-
-  // gradients, magnitude and orientation split
-  const float two_pi = (float)(2.0 * M_PI);
-  for (int e = tid; e < PP; e += THREADS) {
-    const int r = e / P, c = e - (e / P) * P;
-    const float* v = s_x + e;
-    const float gx = c == 0 ? v[1] - v[0]
-                   : (c == P - 1 ? v[0] - v[-1] : v[1] - v[-1]);
-    const float gy = r == 0 ? v[P] - v[0]
-                   : (r == P - 1 ? v[0] - v[-P] : v[P] - v[-P]);
-    const float mag = sqrtf(gx * gx + gy * gy);
-    const float ori = atan2f(gy, gx);
-    const float o = ((float)ob * (ori + two_pi)) / two_pi;
-    const float bo0 = floorf(o);
-    s_val[e] = s_circ[e] * mag;
-    s_w1[e] = o - bo0;
-    s_b0[e] = ((int)bo0) % ob;
-  }
-  __syncthreads();
-
-  // rows: t[br, c, o] = sum_r W[r, br] * w_o(r, c)
-  for (int e = tid; e < sb * P * ob; e += THREADS) {
-    const int o = e % ob, c = (e / ob) % P, br = e / (ob * P);
-    float acc = 0.0f;
-    for (int r = 0; r < P; ++r) {
-      const int i = r * P + c;
-      const int b0 = s_b0[i];
-      const int b1 = b0 + 1 == ob ? 0 : b0 + 1;
-      const float w1 = s_w1[i];
-      const float wt = b0 == o ? 1.0f - w1 : (b1 == o ? w1 : 0.0f);
-      acc = acc + s_W[r * sb + br] * (s_val[i] * wt);
-    }
-    s_t[e] = acc;
-  }
-  __syncthreads();
-
-  // columns: desc[br, bc, o] = sum_c W[c, bc] * t[br, c, o]
-  float d = 0.0f;
-  if (tid < nb) {
-    const int o = tid % ob, bc = (tid / ob) % sb, br = tid / (ob * sb);
+  for (int b = tid; b < sb; b += NW * 32) {
+    int lo = P, hi = -1;
     for (int c = 0; c < P; ++c)
-      d = d + s_W[c * sb + bc] * s_t[(br * P + c) * ob + o];
+      if (s_W[c * sb + b] != 0.0f) { lo = min(lo, c); hi = c; }
+    s_clo[b] = lo;
+    s_chi[b] = hi;
   }
-  const float norm = sqrtf(block_sum(d * d, s_red));
-  const float v = d / norm;
-  const float clipped = v > max_bin ? max_bin : v;
-  const int changed = __syncthreads_or(tid < nb && v > max_bin);
-  const float norm2 =
-      sqrtf(block_sum(tid < nb ? clipped * clipped : 0.0f, s_red));
-  const float res = changed ? clipped / norm2 : clipped;
-  if (tid < nb) {
-    const float q = floorf(512.0f * res);
-    out[(size_t)k * nb + tid] = q > 255.0f ? 255.0f : q;
+  if (warp == 0) {
+    for (int g = 0; g < 2; ++g) {
+      const int c = group_col(g, lane, P);
+      int lo = P, hi = -1;
+      if (c >= 0)
+        for (int r = 0; r < P; ++r)
+          if (circ[r * P + c] > 0.0f) { lo = min(lo, r); hi = r; }
+      lo = __reduce_min_sync(FULL, lo);
+      hi = __reduce_max_sync(FULL, hi);
+      if (lane == 0) { s_glo[g] = lo; s_ghi[g] = hi; }
+    }
+  }
+  __syncthreads();
+
+  float* s_x = s_warp + warp * (XS + nq * (32 + n2));  // the patch; tT
+  float* s_t1 = s_x + XS;                  // t of group 0: [q][32]
+  float* s_t2 = s_t1 + nq * 32;            // t of group 1: [q][n2]
+  const float two_pi = (float)(2.0 * M_PI);
+
+  for (int k = blockIdx.x * NW + warp; k < K; k += gridDim.x * NW) {
+    __syncwarp();  // the previous patch's reads are done
+    if (valid && !valid[k]) {
+      for (int i = lane; i < nb; i += 32) {
+        if (U8) ((uint8_t*)out)[(size_t)k * nb + i] = 0;
+        else ((float*)out)[(size_t)k * nb + i] = 0.0f;
+      }
+      continue;
+    }
+
+    // photometric normalisation over the support disc
+    const float* pin = patches + (size_t)k * PP;
+    for (int e = lane; e < PP; e += 32) {
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(s_x + e);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(dst), "l"(pin + e));
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    float a = 0.0f;
+    for (int e = lane; e < PP; e += 32)
+      a = a + (__ldg(circ + e) > 0.0f ? s_x[e] : 0.0f);
+    const float mean = warp_sum(a) / n_support;
+    a = 0.0f;
+    for (int e = lane; e < PP; e += 32) {
+      const float d = mean - s_x[e];
+      a = a + (__ldg(circ + e) > 0.0f ? d * d : 0.0f);
+    }
+    const float sd = sqrtf(warp_sum(a) / n_support);
+    if (!(sd < 0.0001f)) {
+      const float fac = 50.0f / sd;
+      for (int e = lane; e < PP; e += 32) {
+        const float v = 128.0f + fac * (s_x[e] - mean);
+        s_x[e] = v < 0.0f ? 0.0f : (v > 255.0f ? 255.0f : v);
+      }
+    }
+    __syncwarp();
+
+    // rows: the warp walks a column group's support rows together, a
+    // lane a column (neighbouring lanes read neighbouring words); each
+    // lane adds its pixels' terms, in row order, into its own bank of t
+    for (int g = 0; g < 2; ++g) {
+      const int c = group_col(g, lane, P);
+      float* tc = g == 0 ? s_t1 + lane : s_t2 + lane;
+      const int ts = g == 0 ? 32 : n2;
+      if (c < 0) continue;
+      for (int q = 0; q < nq; ++q) tc[q * ts] = 0.0f;
+      const int rhi = s_ghi[g];
+      for (int r = s_glo[g]; r <= rhi; ++r) {
+        const int e = r * P + c;
+        const float* v = s_x + e;
+        const float gx = c == 0 ? v[1] - v[0]
+                       : (c == P - 1 ? v[0] - v[-1] : v[1] - v[-1]);
+        const float gy = r == 0 ? v[P] - v[0]
+                       : (r == P - 1 ? v[0] - v[-P] : v[P] - v[-P]);
+        const float mag = sqrtf(gx * gx + gy * gy);
+        const float ori = atan2f(gy, gx);
+        const float o = ((float)ob * (ori + two_pi)) / two_pi;
+        const float bo0 = floorf(o);
+        const float f1 = o - bo0;
+        // o lies in [ob / 2, 3 ob / 2]: one subtraction is the modulo
+        const int b = (int)bo0;
+        const int b0 = b >= ob ? b - ob : b;
+        const int b1 = b0 + 1 == ob ? 0 : b0 + 1;
+        // outside the support disc val is +0 and so is every term
+        const float val = __ldg(circ + e) * mag;
+        const float v0 = val * (1.0f - f1);
+        const float v1 = val * f1;
+        // a row has at most two non-zero bins, blo and blo + 1; the four
+        // sums differ (b1 != b0 as ob >= 2), so their loads go out
+        // together before the stores
+        const int blo = s_blo[r];
+        if (blo > s_bhi[r]) continue;
+        const float w0 = s_W[r * sb + blo];
+        const float w1 = blo + 1 < sb ? s_W[r * sb + blo + 1] : 0.0f;
+        float* t00 = tc + (blo * ob + b0) * ts;
+        float* t01 = tc + (blo * ob + b1) * ts;
+        if (w1 != 0.0f) {
+          float* t10 = t00 + ob * ts;
+          float* t11 = t01 + ob * ts;
+          const float x00 = *t00, x01 = *t01, x10 = *t10, x11 = *t11;
+          *t00 = x00 + w0 * v0;
+          *t01 = x01 + w0 * v1;
+          *t10 = x10 + w1 * v0;
+          *t11 = x11 + w1 * v1;
+        } else {
+          const float x00 = *t00, x01 = *t01;
+          *t00 = x00 + w0 * v0;
+          *t01 = x01 + w0 * v1;
+        }
+      }
+    }
+    __syncwarp();
+    // t into tT[c][q] over the dead patch, so that the column pass reads
+    // 32 banks at once
+    for (int g = 0; g < 2; ++g) {
+      const int c = group_col(g, lane, P);
+      if (c < 0) continue;
+      const float* tc = g == 0 ? s_t1 + lane : s_t2 + lane;
+      const int ts = g == 0 ? 32 : n2;
+      for (int q0 = 0; q0 < nq; q0 += 8) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = q0 + u < nq ? tc[(q0 + u) * ts] : 0.0f;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (q0 + u < nq) s_x[c * TT + q0 + u] = v[u];
+      }
+    }
+    __syncwarp();
+
+    // columns: desc[br, bc, o] = sum_c W[c, bc] * t[br, o, c] in column
+    // order; a lane owns outputs lane + 32 j
+    // (i = lane + 32 j: bc and o are the lane's, br = j)
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    {
+      const int o = lane % ob, bc = (lane / ob) % sb;
+      const float* tq = s_x + o;
+      const int chi = s_chi[bc];
+      for (int cc = s_clo[bc]; cc <= chi; ++cc) {
+        const float w = s_W[cc * sb + bc];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (lane + 32 * j < nb)
+            d[j] = d[j] + w * tq[cc * TT + ((lane + 32 * j) / (ob * sb)) * ob];
+      }
+    }
+    float ss = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ss = ss + d[j] * d[j];
+    const float norm = sqrtf(warp_sum(ss));
+    float cl[4];
+    bool over = false;
+    float ss2 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = lane + 32 * j < nb;
+      const float v = d[j] / norm;
+      over = over || (in && v > max_bin);
+      cl[j] = v > max_bin ? max_bin : v;
+      ss2 = ss2 + (in ? cl[j] * cl[j] : 0.0f);
+    }
+    const bool changed = __any_sync(FULL, over);
+    const float norm2 = sqrtf(warp_sum(ss2));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = lane + 32 * j;
+      if (i >= nb) continue;
+      const float res = changed ? cl[j] / norm2 : cl[j];
+      const float f = floorf(512.0f * res);
+      const float qv = f > 255.0f ? 255.0f : f;
+      if (U8) ((uint8_t*)out)[(size_t)k * nb + i] = (uint8_t)__float2uint_rz(qv);
+      else ((float*)out)[(size_t)k * nb + i] = qv;
+    }
   }
 }
 
-// patches: (K, P, P) float32; circ: (P, P) float32 circular mask;
-// spatial: (P, sb) float32 spatial bin weights; n_support: the count of
-// circ > 0.  out: (K, sb*sb*ob) float32 quantised values.  Returns
-// cudaGetLastError().
-extern "C" int hesaff_sift_desc(const float* patches, int K, int P,
-                                const float* circ, const float* spatial,
-                                int sb, int ob, float n_support,
-                                float max_bin, float* out, void* stream) {
-  if (P < 3 || sb < 1 || ob < 1 || sb * sb * ob > THREADS)
-    return (int)cudaErrorInvalidValue;
-  if (K == 0) return (int)cudaGetLastError();
-  const size_t shmem = sizeof(float) * ((size_t)5 * P * P + P * sb +
-                                        (size_t)sb * P * ob + THREADS);
+template <bool U8>
+static int launch(const float* patches, const uint8_t* valid, int K, int P,
+                  const float* circ, const float* spatial, int sb, int ob,
+                  float n_support, float max_bin, void* out,
+                  cudaStream_t stream) {
+  const size_t PP = (size_t)P * P, nq = (size_t)sb * ob;
+  const size_t n2 = P > 32 ? P - 32 : 0;
+  const size_t XS = PP > P * (nq + 1) ? PP : P * (nq + 1);
+  const size_t shmem = sizeof(float) * ((size_t)P * sb +
+                                        NW * (XS + nq * (32 + n2))) +
+                       sizeof(int) * (2 * (size_t)P + 2 * sb + 4);
   if (shmem > 232448) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      sift_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+      sift_kernel<U8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)shmem);
   if (err != cudaSuccess) return (int)err;
-  sift_kernel<<<K, THREADS, shmem, (cudaStream_t)stream>>>(
-      patches, P, circ, spatial, sb, ob, n_support, max_bin, out);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sift_kernel<U8>, NW * 32, shmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = ((long long)K + NW - 1) / NW;
+  const long long cap = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const int blocks = (int)(need < cap ? need : cap);
+  sift_kernel<U8><<<blocks, NW * 32, shmem, stream>>>(
+      patches, valid, K, P, circ, spatial, sb, ob, n_support, max_bin, out);
   return (int)cudaGetLastError();
+}
+
+// patches: (K, P, P) float32; valid: (K,) bool or null (every slot);
+// circ: (P, P) float32 circular mask; spatial: (P, sb) float32 spatial
+// bin weights; n_support: the count of circ > 0.  out: (K, sb*sb*ob)
+// uint8 when u8 is set (zero rows where valid is false), else float32
+// quantised values.  Returns cudaGetLastError().
+extern "C" int hesaff_sift_desc(const float* patches, const uint8_t* valid,
+                                int K, int P, const float* circ,
+                                const float* spatial, int sb, int ob,
+                                float n_support, float max_bin, int u8,
+                                void* out, void* stream) {
+  const int nb = sb * sb * ob;
+  if (P < 3 || P > 64 || sb < 1 || ob < 2 || nb > 128 || 32 % (sb * ob) ||
+      K < 0)
+    return (int)cudaErrorInvalidValue;
+  if (K == 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return u8 ? launch<true>(patches, valid, K, P, circ, spatial, sb, ob,
+                           n_support, max_bin, out, s)
+            : launch<false>(patches, valid, K, P, circ, spatial, sb, ob,
+                            n_support, max_bin, out, s);
 }

@@ -35,7 +35,7 @@ from hesaff_tpu_torch.config import DEFAULT_CONFIG, HesaffConfig
 from hesaff_tpu_torch.ops.batching import compact_indices
 from hesaff_tpu_torch.ops.cuda_patches import (extract_group,
                                                extract_group_scaled)
-from hesaff_tpu_torch.ops.cuda_sift import sift_descriptors
+from hesaff_tpu_torch.ops.cuda_sift import describe_masked
 from hesaff_tpu_torch.patches import (_min_workspace, direct_patches,
                                       extract_bucket_batch)
 from hesaff_tpu_torch.pipeline import resolve_device
@@ -147,14 +147,10 @@ def _gather(flat, idx, valid, ncap: int, sort: bool):
 
 
 def describe_valid(patches, valid, cfg: HesaffConfig):
-    """uint8 descriptors of the valid slots; zero rows elsewhere."""
-    desc = torch.zeros((patches.shape[0], 128), dtype=torch.uint8,
-                       device=patches.device)
+    """uint8 descriptors of the valid slots; zero rows elsewhere (one
+    masked SIFT launch over every slot on the card)."""
     with record_function("SIFT"):
-        sel = valid.nonzero(as_tuple=True)[0]
-        if sel.numel():
-            desc[sel] = sift_descriptors(patches[sel], cfg).to(torch.uint8)
-    return desc
+        return describe_masked(patches, valid, cfg)
 
 
 def phase_a(images: torch.Tensor, cfg: HesaffConfig):

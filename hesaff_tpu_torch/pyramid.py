@@ -3,8 +3,11 @@
 Port of ``hesaff_tpu/pyramid.py``: each octave gives a
 (num_scales+2, H, W) blur stack and the matching DoH stack; the next
 octave seeds from the level at sigma = 2 * initial_sigma by unfiltered
-2x subsampling.  Level 0's response is the plain DoH; every further
-level comes from the fused blur + DoH kernel (ops/cuda_blur).
+2x subsampling.  Every level, and the initial blur, comes from the fused
+blur + DoH kernel (ops/cuda_blur), which writes each level straight
+into its slot of the two stacks: level 0 by the identity tap [1.0]
+(a copy of the first level and its DoH), the initial blur and the
+pyramid-tail seeds by its blur-only mode.
 """
 
 from __future__ import annotations
@@ -16,8 +19,8 @@ import torch
 
 from hesaff_tpu_torch.config import HesaffConfig
 from hesaff_tpu_torch.ops import cuda_blur
-from hesaff_tpu_torch.ops.blur import gaussian_taps, separable_blur
-from hesaff_tpu_torch.ops.hessian import hessian_response, norm2_of
+from hesaff_tpu_torch.ops.blur import gaussian_taps
+from hesaff_tpu_torch.ops.hessian import norm2_of
 from hesaff_tpu_torch.ops.resample import double_image, half_image
 
 
@@ -63,7 +66,7 @@ def prepare_first_level(image: torch.Tensor, cfg: HesaffConfig):
         pd *= 0.5
     taps = first_level_taps(cfg)
     if taps is not None:
-        first = separable_blur(first, taps)
+        first = cuda_blur.blur(first.contiguous(), taps)
     return first, pd
 
 
@@ -76,31 +79,38 @@ def scaled_first_level(images: torch.Tensor, cfg: HesaffConfig,
     reached).  The result carries blur sigma0 in its own pixels.
     """
     cur, _ = prepare_first_level(images, cfg)
-    sig = level_sigmas(cfg)
     for _ in range(octave):
-        for i, taps in enumerate(ladder_taps(cfg)[:cfg.num_scales]):
-            cur, _ = cuda_blur.blur_doh(cur.contiguous(), taps,
-                                        norm2_of(sig[i + 1] ** 2))
+        for taps in ladder_taps(cfg)[:cfg.num_scales]:
+            cur = cuda_blur.blur(cur, taps)
         cur = half_image(cur)
     return cur
 
 
 def build_octave(first_level: torch.Tensor, pixel_distance: float,
                  cfg: HesaffConfig) -> Octave:
-    """One octave's blur and DoH stacks for (..., H, W) first levels."""
+    """One octave's blur and DoH stacks for (..., H, W) first levels.
+
+    The stacks are allocated once; each level is one blur + DoH launch
+    into its slot (level 0 with the identity tap), so no level is
+    copied again.
+    """
     sigmas = level_sigmas(cfg)
     first_level = first_level.contiguous()
-    blurs = [first_level]
-    resps = [hessian_response(first_level, sigmas[0] ** 2)]
+    L = cfg.num_scales + 2
+    shape = first_level.shape[:-2] + (L,) + first_level.shape[-2:]
+    blurs = first_level.new_empty(shape)
+    resps = first_level.new_empty(shape)
+    cuda_blur.blur_doh(first_level, [1.0], norm2_of(sigmas[0] ** 2),
+                       out=blurs[..., 0, :, :], resp_out=resps[..., 0, :, :])
     for i, taps in enumerate(ladder_taps(cfg)):
-        b, r = cuda_blur.blur_doh(blurs[-1], taps,
-                                  norm2_of(sigmas[i + 1] ** 2))
-        blurs.append(b)
-        resps.append(r)
+        cuda_blur.blur_doh(blurs[..., i, :, :], taps,
+                           norm2_of(sigmas[i + 1] ** 2),
+                           out=blurs[..., i + 1, :, :],
+                           resp_out=resps[..., i + 1, :, :])
     return Octave(
-        blurs=torch.stack(blurs, dim=-3),
-        resps=torch.stack(resps, dim=-3),
+        blurs=blurs,
+        resps=resps,
         sigmas=tuple(sigmas),
         pixel_distance=pixel_distance,
-        next_first=half_image(blurs[cfg.num_scales]),
+        next_first=half_image(blurs[..., cfg.num_scales, :, :]),
     )

@@ -7,14 +7,16 @@ they run as
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances are the kernels' (chip_smoke.py states the same): blur atol
-1e-4 and response atol 0.1; the octave-wide walk exact (ok, cand,
+1e-4 and response atol 0.1 (and bit-equal blur and response at every
+tap count, in stack slots and blur-only); the octave-wide walk exact (ok, cand,
 cells) at every level with its field table at rtol 1e-6 / atol 1e-5 at
 every pixel; the maps kernel with equal mask, nan and edge flags and
 the maps at rtol 1e-6 / atol 1e-5 where the mask is set; the sparse
 octave path equal to its CPU run in every field but s (rtol 1e-6, the
 exp2 wobble); the affine loop under the 2% ok/iteration flip budget
 with U rtol 1e-4 / atol 5e-5; the patch kernel with equal bad flags
-and patches at atol 1e-3; SIFT within one step and >= 99% exact.
+and patches at atol 1e-3; SIFT within one step and >= 99% exact (its masked uint8 entry equal to
+its float entry, zero rows where not valid).
 """
 
 import os
@@ -57,6 +59,79 @@ def test_blur_doh_kernel(dev, shape, k):
     assert cuda_blur.LAUNCHES == before + 1
     assert float((b - pb).abs().max()) <= 1e-4
     assert float((r - pr).abs().max()) <= 0.1
+
+
+@pytest.mark.parametrize("k", [1, 3, 9, 11, 13, 15, 31])
+@pytest.mark.parametrize("shape", [(3, 17, 16), (2, 61, 47), (1, 70, 200)])
+def test_blur_doh_kernel_bit_equal(dev, shape, k):
+    """K1 at each templated tap count (1, 9, 11, 13, 15) and the generic
+    instance (3, 31), on sizes off the 64 x 32 tile and on rows that
+    take the 16-byte loads (W % 4 == 0): bit-equal to its plain version,
+    blur and response."""
+    from hesaff_tpu_torch.ops import cuda_blur
+    from hesaff_tpu_torch.ops.blur import gaussian_taps
+
+    rng = np.random.default_rng(k)
+    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32),
+                          device=dev)
+    taps = [1.0] if k == 1 else gaussian_taps((k - 1) / 6.0, k)
+    before = cuda_blur.LAUNCHES
+    b, r = cuda_blur.blur_doh(img, taps, 6.5536)
+    pb, pr = cuda_blur.blur_doh_plain(img, taps, 6.5536)
+    torch.cuda.synchronize()
+    assert cuda_blur.LAUNCHES == before + 1
+    assert torch.equal(b, pb) and torch.equal(r, pr)
+    if k == 1:
+        assert torch.equal(b, img)
+
+
+@pytest.mark.parametrize("H,W", [(61, 47), (64, 128)])
+def test_blur_doh_kernel_stack_slots(dev, H, W):
+    """K1 reading slot i of a (B, L, H, W) stack and writing slot i + 1
+    of it and of a response stack, and in blur-only mode from a slot:
+    bit-equal to the plain version, the other slots untouched."""
+    from hesaff_tpu_torch.ops import cuda_blur
+    from hesaff_tpu_torch.ops.blur import gaussian_taps, separable_blur
+
+    rng = np.random.default_rng(11)
+    stack = torch.as_tensor(smooth_stacks(rng, 2, 5, H, W), device=dev)
+    keep = stack.clone()
+    resps = torch.full_like(stack, -1.0)
+    taps = gaussian_taps(2.45)
+    before = cuda_blur.LAUNCHES
+    cuda_blur.blur_doh(stack[:, 1], taps, 6.5536, out=stack[:, 2],
+                       resp_out=resps[:, 2])
+    pb, pr = cuda_blur.blur_doh_plain(keep[:, 1], taps, 6.5536)
+    only = cuda_blur.blur(stack[:, 0], taps)
+    torch.cuda.synchronize()
+    assert cuda_blur.LAUNCHES == before + 2
+    assert torch.equal(stack[:, 2], pb) and torch.equal(resps[:, 2], pr)
+    assert torch.equal(only, separable_blur(keep[:, 0], taps))
+    for i in (0, 1, 3, 4):
+        assert torch.equal(stack[:, i], keep[:, i])
+    assert bool((resps[:, [0, 1, 3, 4]] == -1.0).all())
+
+
+def test_ladder_on_gpu_equals_cpu(dev):
+    """prepare_first_level and build_octave on the card (K1 only: blur-
+    only first level, identity level 0, slots) equal the plain run."""
+    from hesaff_tpu_torch import pyramid
+    from hesaff_tpu_torch.ops import cuda_blur
+
+    rng = np.random.default_rng(12)
+    imgs = (rng.random((2, 90, 124)) * 255).astype(np.float32)
+    before = cuda_blur.LAUNCHES
+    first, pd = pyramid.prepare_first_level(torch.as_tensor(imgs,
+                                                            device=dev), CFG)
+    o = pyramid.build_octave(first, pd, CFG)
+    torch.cuda.synchronize()
+    assert cuda_blur.LAUNCHES == before + 1 + CFG.num_scales + 2
+    cfirst, _ = pyramid.prepare_first_level(torch.as_tensor(imgs), CFG)
+    co = pyramid.build_octave(cfirst, pd, CFG)
+    assert torch.equal(first.cpu(), cfirst)
+    assert torch.equal(o.blurs.cpu(), co.blurs)
+    assert torch.equal(o.resps.cpu(), co.resps)
+    assert torch.equal(o.next_first.cpu(), co.next_first)
 
 
 @pytest.mark.parametrize("H,W,iters,strided", [
@@ -295,6 +370,56 @@ def test_sift_kernel(dev):
     diff = (out - ref).abs()
     assert float(diff.max()) <= 1
     assert float((diff == 0).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("K", [0, 1, 7, 301])
+def test_sift_kernel_counts(dev, K):
+    """K6 on no patch, one, and counts that are not a multiple of the
+    patches a block: within one step and >= 99% exact."""
+    from hesaff_tpu_torch import sift
+    from hesaff_tpu_torch.ops import cuda_sift
+
+    rng = np.random.default_rng(K)
+    p = np.clip(smooth_stacks(rng, K + 1, 41, 41)[:K], 0, 255)
+    pt = torch.as_tensor(p.astype(np.float32), device=dev)
+    out = cuda_sift.sift_descriptors(pt, CFG)
+    ref = sift.sift_descriptors(pt, CFG)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == (K, 128) and out.dtype == torch.float32
+    if K:
+        diff = (out - ref).abs()
+        assert float(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("mask", ["none", "all", "random"])
+def test_describe_masked_kernel(dev, mask):
+    """K6's masked uint8 entry: zero rows where valid is false; valid
+    rows equal to the kernel's float entry and within one step (>= 99%
+    exact) of the plain version."""
+    from hesaff_tpu_torch import sift
+    from hesaff_tpu_torch.ops import cuda_sift
+
+    rng = np.random.default_rng(13)
+    K = 203
+    p = np.clip(smooth_stacks(rng, K, 41, 41), 0, 255).astype(np.float32)
+    pt = torch.as_tensor(p, device=dev)
+    v = {"none": np.zeros(K, bool), "all": np.ones(K, bool),
+         "random": rng.random(K) < 0.5}[mask]
+    valid = torch.as_tensor(v, device=dev)
+    before = cuda_sift.LAUNCHES
+    out = cuda_sift.describe_masked(pt, valid, CFG)
+    torch.cuda.synchronize()
+    assert cuda_sift.LAUNCHES == before + 1
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (K, 128)
+    assert not bool(out[~valid].any())
+    if v.any():
+        full = cuda_sift.sift_descriptors(pt[valid], CFG)
+        assert torch.equal(out[valid], full.to(torch.uint8))
+        ref = sift.sift_descriptors(pt[valid], CFG)
+        diff = (out[valid].float() - ref).abs()
+        assert float(diff.max()) <= 1
+        assert float((diff == 0).float().mean()) >= 0.99
 
 
 def test_grouped_on_gpu_matches_cpu(dev):

@@ -8,6 +8,7 @@ one quantisation step and > 99% exact (test_pallas.py's tolerance).
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from hesaff_tpu.config import HesaffConfig
 from hesaff_tpu.ops.pallas_sift import sift_descriptors_pallas
@@ -37,3 +38,26 @@ def test_plain_sift_of_no_patches():
     out = cuda_sift.sift_descriptors(t(np.zeros((0, 41, 41), np.float32)),
                                      port_cfg(CFG))
     assert tuple(out.shape) == (0, 128)
+
+
+def test_describe_masked_plain_rows():
+    """describe_masked on CPU tensors: uint8 rows equal to the plain
+    version's values where valid, zero rows elsewhere, no launch."""
+    from hesaff_tpu_torch import dist, sift
+
+    rng = np.random.default_rng(9)
+    K, P = 40, CFG.patch_size
+    patches = t(np.clip(smooth_stacks(rng, 1, K, P, P)[0], 0, 255))
+    valid = t(rng.random(K) < 0.6)
+    pcfg = port_cfg(CFG)
+    before = cuda_sift.LAUNCHES
+    out = cuda_sift.describe_masked(patches, valid, pcfg)
+    assert cuda_sift.LAUNCHES == before
+    assert out.dtype == torch.uint8 and tuple(out.shape) == (K, 128)
+    assert not out[~valid].any()
+    ref = sift.sift_descriptors(patches[valid], pcfg).to(torch.uint8)
+    assert torch.equal(out[valid], ref)
+    assert torch.equal(dist.describe_valid(patches, valid, pcfg), out)
+    none = cuda_sift.describe_masked(patches, torch.zeros(K, dtype=bool),
+                                     pcfg)
+    assert tuple(none.shape) == (K, 128) and not none.any()
