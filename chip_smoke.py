@@ -7,11 +7,11 @@ Builds the CUDA kernels from hesaff_tpu_torch/csrc (phase 1), holds each
 of the six against its plain PyTorch version at the main path's shapes
 (phase 2; K1 bit-equal at the ladder's largest taps, at k=1, written
 into a stack slot and blur-only, with the octave-0 ladder timed as a
-whole; K2 in one launch over octave 0's detection levels, K5 on every
-group of the serving path, K6 on the real patches and through its
-masked uint8 entry on the serving slots, K3 on the octave-0 planes of
-phase 6's images), runs extract() on the 200x160 oracle golden (phase
-3), and
+whole; K2 in one launch over octave 0's detection levels, K4 on every
+octave's keypoints, K5 on every group of the serving path, K6 on the
+real patches and through its masked uint8 entry on the serving slots,
+K3 on the octave-0 planes of phase 6's images), runs extract() on the
+200x160 oracle golden (phase 3), and
 drives both batch entry points on 16 synthetic 800x640 images (the
 bench imagery of bench.py): extract_batch (phase 4) and the grouped
 serving path dist.extraction_step_grouped with bench.py's group table
@@ -32,10 +32,13 @@ phase-6 call (every kernel runs there) and in phases 4, 5 and 6
 (checked: K1 once a ladder level plus the initial blur, K6 once), max
 abs error against the plain version, the kernel's and the plain
 version's ms (one pair of CUDA events around back-to-back launches, 20
-of the kernel and 3 of the plain version, after a warm-up), and the
+of the kernel and 3 of the plain version, after a warm-up; for K3 and
+K4 the kernel's device time from torch.profiler over 20 calls, since a
+K4 call on a small octave is shorter than its host's enqueue), and the
 bound: the larger of the bytes it must move over 3.35 TB/s and the
 float32 operations its function needs over 67 TFLOP/s (H100 SXM data
-sheet), both counted from this run's inputs.  No single PyTorch call
+sheet), both counted from this run's inputs (K4's operations from the
+steps each keypoint ran in the plain loop).  No single PyTorch call
 computes any of the six functions, so library_ms is null.  There is no
 CPU mode: without a CUDA device the script exits with an error.
 """
@@ -76,6 +79,8 @@ KERNELS = (
     ("sift_desc", "hesaff_tpu_torch/csrc/sift_desc.cu",
      "hesaff_tpu/ops/pallas_sift.py:171"),
 )
+# the device kernel of K4's wrapper (torch.profiler's name)
+K4_KERNELS = ("affine_kernel",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
 # outside the tensor cores
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
@@ -109,6 +114,28 @@ def timed(fn, reps: int = 20) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, names, reps: int = 20) -> float:
+    """Device milliseconds of one fn() in the kernels whose names contain
+    one of `names`: torch.profiler over `reps` calls after a warm-up.
+    Unlike timed(), this leaves out the host's time between launches,
+    which is the larger where a call's kernels are short."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.name for n in names))
+    return us / 1e3 / reps
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -210,14 +237,19 @@ def start_images(ex):
             [ex.submit(_synth, LARGE_SEED + k) for k in range(n_tiles)])
 
 
+def mosaic(tiles: np.ndarray) -> np.ndarray:
+    """(LARGE_BATCH * TILES_Y * TILES_X, HEIGHT, WIDTH) tiles, row-major
+    in each frame, to the (LARGE_BATCH, LARGE_H, LARGE_W) frames."""
+    large = tiles.reshape(LARGE_BATCH, TILES_Y, TILES_X, HEIGHT, WIDTH)
+    large = large.transpose(0, 1, 3, 2, 4).reshape(
+        LARGE_BATCH, TILES_Y * HEIGHT, TILES_X * WIDTH)
+    return np.ascontiguousarray(large[:, :LARGE_H, :LARGE_W])
+
+
 def gather_images(futures):
     bench, tiles = futures
-    bench = np.stack([f.result() for f in bench])
-    tiles = np.stack([f.result() for f in tiles]).reshape(
-        LARGE_BATCH, TILES_Y, TILES_X, HEIGHT, WIDTH)
-    large = tiles.transpose(0, 1, 3, 2, 4).reshape(
-        LARGE_BATCH, TILES_Y * HEIGHT, TILES_X * WIDTH)
-    return bench, np.ascontiguousarray(large[:, :LARGE_H, :LARGE_W])
+    return (np.stack([f.result() for f in bench]),
+            mosaic(np.stack([f.result() for f in tiles])))
 
 
 def card_name_and_limit() -> str:
@@ -244,15 +276,13 @@ def phase_build() -> None:
             + " | ".join(s.strip() for s in info["ptxas"].splitlines()))
 
 
-def phase_kernels(images, cfg, dev) -> dict:
+def phase_kernels(images, cfg, card: str) -> dict:
     """Each kernel against its plain version at the main path's shapes:
-    octave 0 of the 16-image batch."""
+    octave 0 of the 16-image batch, and K4 on every octave."""
     import torch
 
     from hesaff_tpu_torch import detect, pyramid
-    from hesaff_tpu_torch.affine_shape import adapt_args
-    from hesaff_tpu_torch.batch import octave_affine_inputs
-    from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, cuda_detect
+    from hesaff_tpu_torch.ops import cuda_blur, cuda_detect
     from hesaff_tpu_torch.ops.blur import separable_blur
     from hesaff_tpu_torch.ops.hessian import hessian_response, norm2_of
 
@@ -359,47 +389,92 @@ def phase_kernels(images, cfg, dev) -> dict:
         nbytes(o.resps[:, :nl + 2], o.blurs[:, 1:nl + 1], ok, cell, tab,
                cand),
         30 * o.resps[:, 1:nl + 1].numel() + 300 * int(cand.sum())))
-    del ok, cell, tab, cand, pok, pcell, ptab, pcand
-
-    # K4 on the octave's real keypoints
-    comp = detect.detect_octave_batch(o.resps, o.blurs, sig, pd, cfg)
-    kargs = adapt_args(*octave_affine_inputs(comp, o.blurs, pd, cfg))
-    act = kargs[6]
-    kr_ = cuda_affine.adapt(*kargs)
-    pr_ = cuda_affine.adapt_plain(*kargs)
-    n_act = int(act.sum())
-    ro, po = pr_.ok & act, kr_.ok & act
-    allow = max(1, int(np.ceil(0.02 * n_act)))
-    flips = int((ro != po).sum())
-    both = ro & po
-    it_flips = int((kr_.iters[both] != pr_.iters[both]).sum())
-    same = both & (kr_.iters == pr_.iters)
-    e4 = 0.0
-    for f in ("u11", "u12", "u21", "u22"):
-        a, b = getattr(kr_, f)[same], getattr(pr_, f)[same]
-        d = (a - b).abs()
-        e4 = max(e4, float(d.max()) if d.numel() else 0.0)
-        check(bool((d <= 5e-5 + 1e-4 * b.abs()).all()), f"affine {f}")
-    check(flips <= allow, f"affine ok flips {flips} > {allow}")
-    check(it_flips <= allow, f"affine iteration flips {it_flips} > {allow}")
-    check(int(both.sum()) >= 10, "affine: too few accepted keypoints")
-    ms = timed(lambda: cuda_affine.adapt(*kargs))
-    pms = timed(lambda: cuda_affine.adapt_plain(*kargs), 3)
-    log(f"phase 2 affine_adapt {n_act} active of {act.numel()} slots: ok "
-        f"flips {flips}, iteration flips {it_flips} (budget {allow}), U max "
-        f"err {e4:.3g} (rtol 1e-4, atol 5e-5); kernel {ms:.3f} ms, plain "
-        f"{pms:.3f} ms")
-    # the pixels under each active keypoint's sampling grid, about
-    # ((G - 1) ratio + 2)^2 (capped at the stack), the per-keypoint
-    # arrays; ~30 flops per grid sample and iteration
-    grid = ((cfg.smm_window_size - 1) * kargs[5][act].double() + 2) ** 2
-    iters = torch.where(kr_.ok & act, kr_.iters + 1, 1)[act]
-    rec["affine_adapt"] = dict(max_abs_err=e4, ms=ms, plain_ms=pms, **bound(
-        min(nbytes(kargs[0]), 4 * int(grid.sum()))
-        + nbytes(*kargs[1:7], kr_.ok, kr_.u11, kr_.u12, kr_.u21, kr_.u22,
-                 kr_.iters),
-        int(iters.sum()) * cfg.smm_window_size ** 2 * 30))
+    del ok, cell, tab, cand, pok, pcell, ptab, pcand, o
+    phase_affine(images, cfg, rec, card)
     return rec
+
+
+def octave_adapt_args(images, cfg) -> list:
+    """cuda_affine.adapt's arguments for every octave of an image batch,
+    as phase A makes them (batch.detect_affine_batch's loop)."""
+    from hesaff_tpu_torch import detect, pyramid
+    from hesaff_tpu_torch.affine_shape import adapt_args
+    from hesaff_tpu_torch.batch import octave_affine_inputs
+
+    sig = pyramid.level_sigmas(cfg)
+    cur, pd = pyramid.prepare_first_level(images, cfg)
+    out, octave = [], 0
+    while min(cur.shape[-2:]) > cfg.min_octave_size:
+        o = pyramid.build_octave(cur, pd, cfg)
+        comp = detect.detect_octave_batch(o.resps, o.blurs, sig, pd, cfg,
+                                          octave=octave)
+        out.append(adapt_args(*octave_affine_inputs(comp, o.blurs, pd, cfg)))
+        cur, pd, octave = o.next_first, pd * 2.0, octave + 1
+    return out
+
+
+def phase_affine(images, cfg, rec, card: str) -> None:
+    """K4 against its plain version on every octave's real keypoints,
+    one launch an octave as phase A makes them."""
+    from hesaff_tpu_torch.ops import cuda_affine
+
+    G = cfg.smm_window_size
+    e4, ms, call_ms, pms, b4, f4 = 0.0, 0.0, 0.0, 0.0, 0, 0
+    n_both, rows = 0, []
+    for oc, kargs in enumerate(octave_adapt_args(images, cfg)):
+        act = kargs[6]
+        kr_ = cuda_affine.adapt(*kargs)
+        pr_, steps = cuda_affine.adapt_plain(*kargs, return_steps=True)
+        n_act = int(act.sum())
+        ro, po = pr_.ok & act, kr_.ok & act
+        allow = max(1, int(np.ceil(0.02 * n_act)))
+        flips = int((ro != po).sum())
+        both = ro & po
+        it_flips = int((kr_.iters[both] != pr_.iters[both]).sum())
+        same = both & (kr_.iters == pr_.iters)
+        for f in ("u11", "u12", "u21", "u22"):
+            a, b = getattr(kr_, f)[same], getattr(pr_, f)[same]
+            d = (a - b).abs()
+            e4 = max(e4, float(d.max()) if d.numel() else 0.0)
+            check(bool((d <= 5e-5 + 1e-4 * b.abs()).all()),
+                  f"affine {f}, octave {oc}")
+        check(flips <= allow, f"affine ok flips {flips} > {allow}, octave {oc}")
+        check(it_flips <= allow,
+              f"affine iteration flips {it_flips} > {allow}, octave {oc}")
+        n_both += int(both.sum())
+        kms = device_ms(lambda: cuda_affine.adapt(*kargs), K4_KERNELS)
+        cms = timed(lambda: cuda_affine.adapt(*kargs))
+        kpms = timed(lambda: cuda_affine.adapt_plain(*kargs), 3)
+        ms, call_ms, pms = ms + kms, call_ms + cms, pms + kpms
+        # bytes: the pixels under each active keypoint's sampling grid,
+        # about ((G - 1) ratio + 2)^2 (capped at the stack), the
+        # per-keypoint arrays and the outputs.  Operations: the steps
+        # each keypoint ran (the plain loop's count) times G^2 samples of
+        # ~40 operations (coordinates, floors and tests, four-tap lerp,
+        # gradients and the three masked products)
+        grid = ((G - 1) * kargs[5][act].double() + 2) ** 2
+        b4 += (min(nbytes(kargs[0]), 4 * int(grid.sum()))
+               + nbytes(*kargs[1:7], kr_.ok, kr_.u11, kr_.u12, kr_.u21,
+                        kr_.u22, kr_.iters))
+        n_steps = int(steps.sum())
+        f4 += n_steps * G * G * 40
+        longest = int(steps.max()) if steps.numel() else 0
+        rows.append(dict(octave=oc, active=n_act, slots=act.numel(),
+                         steps=n_steps, longest=longest, ms=kms,
+                         call_ms=cms, plain_ms=kpms, flips=flips,
+                         iteration_flips=it_flips))
+        log(f"phase 2 affine_adapt octave {oc}: {n_act} active of "
+            f"{act.numel()} slots, {n_steps} steps, longest chain {longest}; "
+            f"ok flips {flips}, iteration flips {it_flips} (budget {allow}); "
+            f"kernel {kms:.4f} device ms ({cms:.4f} ms a call back to back), "
+            f"plain {kpms:.3f} ms")
+    check(n_both >= 10, "affine: too few accepted keypoints")
+    log(f"phase 2 affine_adapt, {len(rows)} octaves on {card}: U max err "
+        f"{e4:.3g} (rtol 1e-4, atol 5e-5); kernel {ms:.4f} device ms "
+        f"({call_ms:.4f} ms a call back to back), plain {pms:.3f} ms (sums "
+        "of one call an octave)")
+    rec["affine_adapt"] = dict(max_abs_err=e4, ms=ms, call_ms=call_ms,
+                               plain_ms=pms, octaves=rows, **bound(b4, f4))
 
 
 def phase_group_kernels(images, cfg, rec) -> None:
@@ -544,14 +619,15 @@ def phase_maps_kernel(large, cfg, rec) -> None:
         b3 += nbytes(*args, maps, nan_flag, edge, mask)
         f3 += 140 * o.resps[:, l].numel()
         del maps, nan_flag, edge, mask, pmaps, pnan, pedge, pmask, d, close
-        ms += timed(lambda: cuda_detect.detect_maps(*args, cfg))
+        ms += device_ms(lambda: cuda_detect.detect_maps(*args, cfg),
+                        ("detect_maps_kernel",))
         pms += timed(lambda: cuda_detect.detect_maps_plain(*args, cfg), 3)
     log(f"phase 2 detect_maps 3 x {tuple(o.resps[:, 1].shape)}: mask/nan/"
         f"edge equal, maps max err where mask {e3:.3g} (rtol 1e-6, atol "
-        f"1e-5), all maps bit-equal: {bit_equal}; kernel {ms:.3f} ms, plain "
-        f"{pms:.3f} ms (3 levels)")
+        f"1e-5), all maps bit-equal: {bit_equal}; kernel {ms:.3f} device "
+        f"ms, plain {pms:.3f} ms (3 levels)")
     rec["detect_maps"] = dict(max_abs_err=e3, ms=ms, plain_ms=pms,
-                              **bound(b3, f3))
+                              all_maps_bit_equal=bit_equal, **bound(b3, f3))
 
 
 def _ellipse(f, mr_size):
@@ -866,12 +942,13 @@ def profile_grouped(images, cfg, groups) -> None:
         f"({len(cat)} kernel names)")
     # the port's kernels, each summed over its template instances (K5
     # has one a tile geometry)
-    ours = (("K1", "blur_doh_kernel"), ("K2", "detect_walk_kernel"),
-            ("K4", "affine_kernel"), ("K5", "patches_kernel"),
-            ("K6", "sift_kernel"))
+    ours = (("K1", ("blur_doh_kernel",)), ("K2", ("detect_walk_kernel",)),
+            ("K4", K4_KERNELS), ("K5", ("patches_kernel",)),
+            ("K6", ("sift_kernel",)))
+    of = lambda syms: sum(v for n, v in per_kernel.items()
+                          if any(s in n for s in syms))
     log("  device ms of the port's kernels: " + ", ".join(
-        f"{k} {sum(v for n, v in per_kernel.items() if sym in n):.3f}"
-        for k, sym in ours))
+        f"{k} {of(syms):.3f}" for k, syms in ours))
 
 
 def main() -> int:
@@ -911,7 +988,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s with the build")
     cfg = bench_config()
     images = torch.as_tensor(images_np, device=dev)
-    rec = phase_kernels(images, cfg, dev)
+    rec = phase_kernels(images, cfg, card)
     phase_group_kernels(images, cfg, rec)
     del images
     large = torch.as_tensor(large_np, device=dev)

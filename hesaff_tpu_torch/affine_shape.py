@@ -83,14 +83,18 @@ def _warp_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def adapt_batch_plain(stack, img_idx, src, lx, ly, ratio, active,
-                      win: int, cfg: HesaffConfig,
-                      mask: torch.Tensor) -> AffineResult:
+                      win: int, cfg: HesaffConfig, mask: torch.Tensor,
+                      return_steps: bool = False):
     """Plain version of the adaptation kernel.
 
     stack: (B, L, H, W) blur levels; img_idx, src: (K,) plane of each
     keypoint (image, level); lx, ly: (K,) octave coordinates; ratio:
     (K,) s / (initial_sigma * pd); active: (K,) bool; win: sampling
     window side; mask: (G, G) SMM mask.
+
+    Returns an AffineResult, and with return_steps also the (K,) int32
+    count of Baumberg steps each keypoint ran (until it converged,
+    turned anisotropic or reached max_iterations; 0 where inactive).
     """
     B, L, H, W = stack.shape
     G = cfg.smm_window_size
@@ -110,10 +114,12 @@ def adapt_batch_plain(stack, img_idx, src, lx, ly, ratio, active,
     converged = torch.zeros(K, dtype=torch.bool, device=dev)
     violated = torch.zeros(K, dtype=torch.bool, device=dev)
     conv_iter = torch.zeros(K, dtype=torch.int32, device=dev)
+    steps = torch.zeros(K, dtype=torch.int32, device=dev)
 
     for it in range(cfg.max_iterations):
         if not bool(alive.any()):
             break
+        steps += alive
         wx, wy = affine_grid(G, G, lx, ly, u11 * ratio, u12 * ratio,
                              u21 * ratio, u22 * ratio)
         img, valid = bilinear_sample_from(planes, plane, wx, wy)
@@ -150,12 +156,13 @@ def adapt_batch_plain(stack, img_idx, src, lx, ly, ratio, active,
         alive = alive & ~aniso_bad & ~just_conv
 
     idle = ~active
-    return AffineResult(
+    res = AffineResult(
         ok=converged & ~violated & active,
         u11=torch.where(idle, 1.0, u11), u12=torch.where(idle, 0.0, u12),
         u21=torch.where(idle, 0.0, u21), u22=torch.where(idle, 1.0, u22),
         iters=torch.where(idle, 0, conv_iter),
     )
+    return (res, steps) if return_steps else res
 
 
 def adapt_args(blur_stacks: torch.Tensor, img_idx, src_level, x, y, s,

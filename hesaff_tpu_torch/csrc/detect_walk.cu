@@ -46,12 +46,28 @@
 //
 // K3 replaces detect_maps_pallas (pallas_detect.py:139, kernel body
 // _make_kernel at :37).  It reads 12 bytes and writes 19 a pixel
-// (maps as four floats, the nan / edge / mask flags as one byte each)
-// for about 150 float operations, so on an H100 the bytes bound it.
-// One thread per pixel over a 32 x 8 tile whose three planes sit in
-// shared memory with a 1-px halo: each input is read once from device
-// memory (the halo's re-reads mostly hit L2), the maps go out as one
-// 16-byte store.  The TPU's row blocks with an 8-row halo, its (8, 128)
+// (maps as four floats, the nan / edge / mask flags as one byte each),
+// so the bytes bound the function on an H100; what held the first port
+// (one thread a pixel on a 32 x 8 shared tile) was its instruction
+// stream instead: 27 shared loads and 52 compares for the NMS and ~25
+// shared loads for the differences a pixel, around the --fmad=false
+// solve with its divisions, whose pivot rows, indexed at run time,
+// compiled to ~250 compares and predicated moves.  The design cuts that
+// stream to what the solve needs:
+// - a warp walks a strip of 30 output columns down 16 rows, each row of
+//   the three planes loaded once, straight into a rolling register
+//   window of three rows (one coalesced 128-byte row a plane; the halo
+//   is 32/30 columns and 18/16 rows, and is re-read from L2);
+// - horizontal neighbours come from the next lanes by shuffles, and
+//   the 3x3x3 max and min separably (the planes' max of a row, then
+//   over three rows, then over three lanes), with PTX's NaN-propagating
+//   max / min so that no separate NaN flag is kept;
+// - the maps go out as one 16-byte store a pixel;
+// - the row loop is unrolled three times, so the window rotates without
+//   copies, and the solve picks its pivot rows by value (K2 shares it).
+// The solve and the edge division stay operation for operation, and
+// they are most of what is left: the kernel is still bound by issue,
+// not by bytes.  The TPU's row blocks with an 8-row halo, its (8, 128)
 // padding and its VMEM-sized block search have no counterpart, so any
 // width runs.
 //
@@ -65,6 +81,7 @@
 
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -103,18 +120,18 @@ __device__ void solve3x3(const float a[3][3], const float bb[3], float* x0,
   const bool p1 = fabsf(a[1][0]) > fabsf(a[0][0]);
   const float vp = p1 ? fabsf(a[1][0]) : fabsf(a[0][0]);
   const bool p2 = fabsf(a[2][0]) > vp;
-  const int i0 = p2 ? 2 : (p1 ? 1 : 0);
-  const int i1 = p2 ? 1 : (p1 ? 0 : 1);
-  const int i2 = p2 ? 0 : 2;
+  // rows in pivot order (i0, i1, i2) = (2, 1, 0), (1, 0, 2) or (0, 1, 2),
+  // picked by value: indexing by a run-time row would cost a chain of
+  // predicated moves a value
   float row0[3], row1[3], row2[3];
   for (int j = 0; j < 3; ++j) {
-    row0[j] = a[i0][j];
-    row1[j] = a[i1][j];
-    row2[j] = a[i2][j];
+    row0[j] = p2 ? a[2][j] : (p1 ? a[1][j] : a[0][j]);
+    row1[j] = p2 ? a[1][j] : (p1 ? a[0][j] : a[1][j]);
+    row2[j] = p2 ? a[0][j] : a[2][j];
   }
-  const float b0 = bb[i0];
-  float b1 = bb[i1];
-  float b2 = bb[i2];
+  const float b0 = p2 ? bb[2] : (p1 ? bb[1] : bb[0]);
+  float b1 = p2 ? bb[1] : (p1 ? bb[0] : bb[1]);
+  float b2 = p2 ? bb[0] : bb[2];
 
   const float f1 = row1[0] / row0[0];
   const float r11 = row1[1] - f1 * row0[1];
@@ -172,28 +189,29 @@ __device__ __forceinline__ bool nms_cand(const float* sl, const float* sc,
                   ((c < p.neg_thr) && (c <= mn)));
 }
 
-// Finite differences, pivoted solve and val at one pixel (indexing as
-// nms_cand).  b0, b1, b2, val are raw (NaN where the solve is
+// Finite differences, pivoted solve and val of one pixel from its
+// stencil: c and its neighbours in cur (l / r: column -1 / +1, u / d:
+// row -1 / +1), lo and hi the pixel in the levels below and above with
+// their neighbours.  b0, b1, b2, val are raw (NaN where the solve is
 // singular); the callers sanitise them.
 struct Fit {
   float b0, b1, b2, val, dxx, dyy, dxy;
 };
 
-__device__ __forceinline__ Fit fit_at(const float* sl, const float* sc,
-                                      const float* sh, int ci, int IW) {
-  const float c = AT(sc, 0, 0);
-  const float dxx = (AT(sc, 0, -1) - 2.0f * c) + AT(sc, 0, 1);
-  const float dyy = (AT(sc, -1, 0) - 2.0f * c) + AT(sc, 1, 0);
-  const float dss = (AT(sl, 0, 0) - 2.0f * c) + AT(sh, 0, 0);
-  const float dxy = 0.25f * (((AT(sc, 1, 1) - AT(sc, 1, -1)) -
-                              AT(sc, -1, 1)) + AT(sc, -1, -1));
-  const float dxs = 0.25f * (((AT(sh, 0, 1) - AT(sh, 0, -1)) -
-                              AT(sl, 0, 1)) + AT(sl, 0, -1));
-  const float dys = 0.25f * (((AT(sh, 1, 0) - AT(sh, -1, 0)) -
-                              AT(sl, 1, 0)) + AT(sl, -1, 0));
-  const float dx = 0.5f * (AT(sc, 0, 1) - AT(sc, 0, -1));
-  const float dy = 0.5f * (AT(sc, 1, 0) - AT(sc, -1, 0));
-  const float ds = 0.5f * (AT(sh, 0, 0) - AT(sl, 0, 0));
+__device__ __forceinline__ Fit fit_vals(
+    float c, float c_l, float c_r, float c_u, float c_d, float c_ul,
+    float c_ur, float c_dl, float c_dr, float lo, float lo_l, float lo_r,
+    float lo_u, float lo_d, float hi, float hi_l, float hi_r, float hi_u,
+    float hi_d) {
+  const float dxx = (c_l - 2.0f * c) + c_r;
+  const float dyy = (c_u - 2.0f * c) + c_d;
+  const float dss = (lo - 2.0f * c) + hi;
+  const float dxy = 0.25f * (((c_dr - c_dl) - c_ur) + c_ul);
+  const float dxs = 0.25f * (((hi_r - hi_l) - lo_r) + lo_l);
+  const float dys = 0.25f * (((hi_d - hi_u) - lo_d) + lo_u);
+  const float dx = 0.5f * (c_r - c_l);
+  const float dy = 0.5f * (c_d - c_u);
+  const float ds = 0.5f * (hi - lo);
   const float A[3][3] = {{dxx, dxy, dxs}, {dxy, dyy, dys}, {dxs, dys, dss}};
   const float rhs[3] = {-dx, -dy, -ds};
   Fit m;
@@ -203,6 +221,16 @@ __device__ __forceinline__ Fit fit_at(const float* sl, const float* sc,
   m.dyy = dyy;
   m.dxy = dxy;
   return m;
+}
+
+// fit_vals at index ci of the shared tiles (indexing as nms_cand)
+__device__ __forceinline__ Fit fit_at(const float* sl, const float* sc,
+                                      const float* sh, int ci, int IW) {
+  return fit_vals(AT(sc, 0, 0), AT(sc, 0, -1), AT(sc, 0, 1), AT(sc, -1, 0),
+                  AT(sc, 1, 0), AT(sc, -1, -1), AT(sc, -1, 1), AT(sc, 1, -1),
+                  AT(sc, 1, 1), AT(sl, 0, 0), AT(sl, 0, -1), AT(sl, 0, 1),
+                  AT(sl, -1, 0), AT(sl, 1, 0), AT(sh, 0, 0), AT(sh, 0, -1),
+                  AT(sh, 0, 1), AT(sh, -1, 0), AT(sh, 1, 0));
 }
 #undef AT
 
@@ -379,51 +407,138 @@ __global__ void __launch_bounds__(WTHREADS) detect_walk_kernel(
   }
 }
 
-// K3: the maps alone, one thread per pixel of an MH x MW tile whose
-// three input planes sit in shared memory with the stencils' 1-px halo
-// (edge-replicated at the image border).
-#define MW 32
-#define MH 8
+// K3: the maps alone.  A warp walks M3_ROWS output rows of a strip of
+// M3_COLS columns: lane i holds image column c0 - 1 + i (clamped: the
+// replicate border), so lanes 1..M3_COLS are output pixels and lanes 0
+// and 31 the stencils' halo.  Each row of the three planes is loaded
+// once (one row ahead of its use) into a rolling window of rows r - 1,
+// r, r + 1; a pixel's left and right neighbours come from the next
+// lanes by shuffles, and the 3x3x3 max and min are taken separably: the
+// three planes' max of a row, then over the three rows, then over the
+// three lanes.
+#define M3_COLS 30
+#define M3_ROWS 16
+#define M3_WARPS 4
 
-__global__ void detect_maps_kernel(
+// max / min that return NaN when either input is NaN (jnp.maximum's
+// rule), so a NaN among the 27 fails both NMS tests as in the plain
+// version
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float from_left(float v) {
+  return __shfl_up_sync(0xffffffffu, v, 1);
+}
+__device__ __forceinline__ float from_right(float v) {
+  return __shfl_down_sync(0xffffffffu, v, 1);
+}
+
+// One row of K3's window at the lane's column: the three planes' values,
+// cur's left and right neighbours, and the planes' max and min.
+struct MapsRow {
+  float lo, cu, hi, cl, cr, mx, mn;
+};
+
+__device__ __forceinline__ void maps_row_in(MapsRow& w, float lo, float cu,
+                                            float hi) {
+  w.lo = lo;
+  w.cu = cu;
+  w.hi = hi;
+  w.cl = from_left(cu);
+  w.cr = from_right(cu);
+  w.mx = max_nan(max_nan(lo, cu), hi);
+  w.mn = min_nan(min_nan(lo, cu), hi);
+}
+
+struct MapsOut {
+  float4* maps;
+  uint8_t *nan, *edge, *mask;
+};
+
+// The maps of row r at the lane's column from the window's rows r - 1
+// (u), r (m) and r + 1 (d).
+__device__ __forceinline__ void maps_at(const MapsRow& u, const MapsRow& m,
+                                        const MapsRow& d, int r, int gc,
+                                        int H, int W, bool out_col,
+                                        bool keep_c, const Params& p,
+                                        const MapsOut& o) {
+  const float cx = max_nan(max_nan(u.mx, m.mx), d.mx);
+  const float cm = min_nan(min_nan(u.mn, m.mn), d.mn);
+  const float mx = max_nan(max_nan(from_left(cx), cx), from_right(cx));
+  const float mn = min_nan(min_nan(from_left(cm), cm), from_right(cm));
+  const Fit f = fit_vals(m.cu, m.cl, m.cr, u.cu, d.cu, u.cl, u.cr, d.cl,
+                         d.cr, m.lo, from_left(m.lo), from_right(m.lo), u.lo,
+                         d.lo, m.hi, from_left(m.hi), from_right(m.hi), u.hi,
+                         d.hi);
+  if (out_col) {
+    const bool keep = keep_c && r >= p.border && r < H - p.border;
+    const bool cand = ((m.cu > p.pos_thr) && (m.cu >= mx)) ||
+                      ((m.cu < p.neg_thr) && (m.cu <= mn));
+    const int g = r * W + gc;
+    o.maps[g] = make_float4(nan_to_num(f.b0), nan_to_num(f.b1),
+                            nan_to_num(f.b2), nan_to_num(f.val));
+    o.nan[g] = nan_of(f) ? 1 : 0;
+    o.edge[g] = edge_bad_of(f, p) ? 1 : 0;
+    o.mask[g] = (cand && keep) ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(32 * M3_WARPS) detect_maps_kernel(
     const float* __restrict__ low, const float* __restrict__ cur,
     const float* __restrict__ high, long long s_low, long long s_cur,
     long long s_high, float4* __restrict__ maps_out,
     uint8_t* __restrict__ nan_out, uint8_t* __restrict__ edge_out,
     uint8_t* __restrict__ mask_out, int H, int W, Params p) {
-  constexpr int IW = MW + 2, IH = MH + 2;
-  __shared__ float sl[IH * IW], sc[IH * IW], sh[IH * IW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = (blockIdx.y * M3_WARPS + warp) * M3_ROWS;
+  if (r0 >= H) return;
   const int n = blockIdx.z;
-  const float* lo = low + n * s_low;
-  const float* cu = cur + n * s_cur;
-  const float* hi = high + n * s_high;
-  const int r0 = blockIdx.y * MH, c0 = blockIdx.x * MW;
-  const int tid = threadIdx.y * MW + threadIdx.x;
+  const int gc = blockIdx.x * M3_COLS - 1 + lane;
+  const float* lo = low + n * s_low + clampi(gc, 0, W - 1);
+  const float* cu = cur + n * s_cur + clampi(gc, 0, W - 1);
+  const float* hi = high + n * s_high + clampi(gc, 0, W - 1);
+  const bool out_col = lane >= 1 && lane <= M3_COLS && gc < W;
+  const bool keep_c = gc >= p.border && gc < W - p.border;
+  const size_t plane = (size_t)n * H * W;
+  const MapsOut o = {maps_out + plane, nan_out + plane, edge_out + plane,
+                     mask_out + plane};
 
-  for (int e = tid; e < IH * IW; e += MH * MW) {
-    const int rr = e / IW, cc = e - (e / IW) * IW;
-    const int gr = clampi(r0 - 1 + rr, 0, H - 1);
-    const int gc = clampi(c0 - 1 + cc, 0, W - 1);
-    const size_t g = (size_t)gr * W + gc;
-    sl[e] = lo[g];
-    sc[e] = cu[g];
-    sh[e] = hi[g];
+  // the window's rows r - 1, r, r + 1 rotate through w0, w1, w2 (the
+  // loop is unrolled three times so that no row is copied); row r + 2
+  // is loaded one row ahead of its use
+  MapsRow w0, w1, w2;
+  int q = clampi(r0 - 1, 0, H - 1) * W;
+  maps_row_in(w0, lo[q], cu[q], hi[q]);
+  q = r0 * W;
+  maps_row_in(w1, lo[q], cu[q], hi[q]);
+  q = min(r0 + 1, H - 1) * W;
+  float ln = lo[q], cn = cu[q], hn = hi[q];
+  const int rend = min(r0 + M3_ROWS, H);
+#define MAPS_STEP(U, M, D, r)                                  \
+  {                                                            \
+    maps_row_in(D, ln, cn, hn);                                \
+    q = min((r) + 2, H - 1) * W;                               \
+    ln = lo[q];                                                \
+    cn = cu[q];                                                \
+    hn = hi[q];                                                \
+    maps_at(U, M, D, r, gc, H, W, out_col, keep_c, p, o);      \
   }
-  __syncthreads();
-
-  const int gr = r0 + threadIdx.y, gc = c0 + threadIdx.x;
-  if (gr >= H || gc >= W) return;
-  const int ci = (threadIdx.y + 1) * IW + (threadIdx.x + 1);
-  const Fit m = fit_at(sl, sc, sh, ci, IW);
-  const bool keep = gr >= p.border && gr < H - p.border &&
-                    gc >= p.border && gc < W - p.border;
-  const bool cand = nms_cand(sl, sc, sh, ci, IW, p);
-  const size_t g = (size_t)n * H * W + (size_t)gr * W + gc;
-  maps_out[g] = make_float4(nan_to_num(m.b0), nan_to_num(m.b1),
-                            nan_to_num(m.b2), nan_to_num(m.val));
-  nan_out[g] = nan_of(m) ? 1 : 0;
-  edge_out[g] = edge_bad_of(m, p) ? 1 : 0;
-  mask_out[g] = (cand && keep) ? 1 : 0;
+#pragma unroll 1
+  for (int r = r0; r < rend; r += 3) {
+    MAPS_STEP(w0, w1, w2, r);
+    if (r + 1 >= rend) break;
+    MAPS_STEP(w1, w2, w0, r + 1);
+    if (r + 2 >= rend) break;
+    MAPS_STEP(w2, w0, w1, r + 2);
+  }
+#undef MAPS_STEP
 }
 
 // K2 entry: every detection level of one octave.  resps: B x L (H, W)
@@ -486,9 +601,11 @@ extern "C" int hesaff_detect_maps(
   p.pos_thr = pos_thr;
   p.neg_thr = neg_thr;
   p.edge_thr = edge_thr;
-  dim3 block(MW, MH);
-  dim3 grid((W + MW - 1) / MW, (H + MH - 1) / MH, n);
-  detect_maps_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  if (n < 1 || n > 65535 || H < 1 || W < 1 || (long long)H * W > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int rows = M3_ROWS * M3_WARPS;
+  dim3 grid((W + M3_COLS - 1) / M3_COLS, (H + rows - 1) / rows, n);
+  detect_maps_kernel<<<grid, 32 * M3_WARPS, 0, (cudaStream_t)stream>>>(
       low, cur, high, s_low, s_cur, s_high, (float4*)maps, nan_flag, edge,
       mask, H, W, p);
   return (int)cudaGetLastError();

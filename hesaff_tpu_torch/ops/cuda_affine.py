@@ -3,7 +3,8 @@
 The kernel (csrc/affine_adapt.cu) replaces the TPU kernel
 ``hesaff_tpu/ops/pallas_affine.py`` (_call_kernel via
 adapt_flat_pallas): up to max_iterations Baumberg steps per keypoint,
-one warp per keypoint.  A CPU tensor takes the plain PyTorch version
+one warp per keypoint, on a persistent grid whose warps take slots from
+a device-side counter.  A CPU tensor takes the plain PyTorch version
 (``affine_shape.adapt_batch_plain``); a CUDA tensor launches the kernel
 or raises.  Unlike the TPU kernel it takes the window side as an
 argument, so one kernel serves every octave, including the small ones
@@ -21,14 +22,21 @@ from hesaff_tpu_torch.ops import cuda_build
 # launches of the CUDA kernel in this process
 LAUNCHES = 0
 
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = ([_vp, ctypes.c_longlong, ctypes.c_longlong, _i, _i] + [_vp] * 6
+             + [_i, _vp] + [_i] * 3 + [_f, _f] + [_vp] * 5)
 
-def adapt_plain(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
+
+def adapt_plain(stack, img_idx, src, lx, ly, ratio, active, win, cfg,
+                return_steps: bool = False):
+    """Plain version of adapt; with return_steps also each keypoint's
+    count of steps run (affine_shape.adapt_batch_plain)."""
     from hesaff_tpu_torch import params
     from hesaff_tpu_torch.affine_shape import adapt_batch_plain
 
     mask = params.tables(cfg, str(lx.device))["smm_mask"]
     return adapt_batch_plain(stack, img_idx, src, lx, ly, ratio, active,
-                             win, cfg, mask)
+                             win, cfg, mask, return_steps)
 
 
 def adapt(stack, img_idx, src, lx, ly, ratio, active, win: int, cfg):
@@ -68,19 +76,16 @@ def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
     ok = torch.empty(K, dtype=torch.int32, device=dev)
     u = torch.empty((K, 4), dtype=torch.float32, device=dev)
     iters = torch.empty(K, dtype=torch.int32, device=dev)
-    fn = cuda_build.library("affine_adapt").hesaff_affine_adapt
-    fn.restype = ctypes.c_int
-    vp, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_longlong)
-    fn.argtypes = [vp, ll, ll, i, i] + [vp] * 6 + [i, vp] + [i] * 3 + [
-        f, f] + [vp] * 3 + [vp]
+    # the kernel's slot counter, zeroed by the entry point on the stream
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    fn = cuda_build.entry("affine_adapt", "hesaff_affine_adapt", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(cuda_build.ptr(stack), stack.stride(0), stack.stride(1),
                  H, W, *(cuda_build.ptr(t) for t in
                          (img_idx, src, lx, ly, ratio, act)),
                  K, cuda_build.ptr(mask), G, win, cfg.max_iterations,
                  cfg.convergence_threshold, cfg.anisotropy_max,
-                 *(cuda_build.ptr(t) for t in (ok, u, iters)),
+                 *(cuda_build.ptr(t) for t in (ok, u, iters, counter)),
                  cuda_build.stream())
     cuda_build.check(err, "affine_adapt")
     LAUNCHES += 1

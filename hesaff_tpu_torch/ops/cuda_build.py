@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 # per-kernel build record: seconds spent compiling (0 when the cached
 # library was reused) and ptxas' register / shared-memory report
 BUILD_INFO: dict[str, dict] = {}
@@ -80,6 +81,18 @@ def library(name: str) -> ctypes.CDLL:
     BUILD_INFO[name] = info
     _libs[name] = lib
     return lib
+
+
+def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C function `symbol` of csrc/<name>.cu, returning an int (a
+    CUDA error code), with its argument types bound once per process."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _entries[(name, symbol)] = fn
+    return fn
 
 
 def check(err: int, what: str) -> None:

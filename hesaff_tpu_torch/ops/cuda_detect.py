@@ -28,6 +28,13 @@ from hesaff_tpu_torch.ops import cuda_build
 LAUNCHES = 0
 MAPS_LAUNCHES = 0
 
+_vp, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                    ctypes.c_longlong)
+_MAPS_ARGTYPES = [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 4 + [_f] * 3 + [
+    _vp]
+_WALK_ARGTYPES = [_vp] * 2 + [_ll] * 4 + [_vp] * 4 + [_i] * 5 + [
+    _f, _f, _f, _f, _i, _i, _f, _f, _vp]
+
 
 def detect_maps_plain(low, cur, high, cfg):
     """Plain PyTorch version of detect_maps (same outputs)."""
@@ -122,13 +129,9 @@ def _launch_maps(low, cur, high, cfg):
     maps = torch.empty((N, H, W, 4), dtype=torch.float32, device=dev)
     flags = [torch.empty((N, H, W), dtype=torch.bool, device=dev)
              for _ in range(3)]
-    if N == 0:
+    if N == 0 or H == 0 or W == 0:
         return (maps, *flags)
-    fn = cuda_build.library("detect_walk").hesaff_detect_maps
-    fn.restype = ctypes.c_int
-    vp, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_longlong)
-    fn.argtypes = [vp] * 3 + [ll] * 3 + [vp] * 4 + [i] * 4 + [f] * 3 + [vp]
+    fn = cuda_build.entry("detect_walk", "hesaff_detect_maps", _MAPS_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(*(cuda_build.ptr(t) for t in (low, cur, high)),
                  *(t.stride(0) for t in (low, cur, high)),
@@ -160,12 +163,8 @@ def _launch(resps, blurs, cfg):
     cand = torch.empty((B, nl, H, W), dtype=torch.uint8, device=dev)
     if B == 0 or H == 0 or W == 0:
         return ok.bool(), cell, tab, cand.bool()
-    fn = cuda_build.library("detect_walk").hesaff_detect_walk_octave
-    fn.restype = ctypes.c_int
-    vp, i, f, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                    ctypes.c_longlong)
-    fn.argtypes = [vp] * 2 + [ll] * 4 + [vp] * 4 + [i] * 5 + [
-        f, f, f, f, i, i, f, f, vp]
+    fn = cuda_build.entry("detect_walk", "hesaff_detect_walk_octave",
+                          _WALK_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(cuda_build.ptr(resps), cuda_build.ptr(blurs),
                  resps.stride(0), resps.stride(1), blurs.stride(0),

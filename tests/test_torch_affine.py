@@ -60,3 +60,37 @@ def test_window_sizes_match_jax():
                 == jaff.sample_window_size(CFG, H, W))
     assert (affine_shape.unclamped_window_size(PCFG)
             == jaff.unclamped_window_size(CFG))
+
+
+def test_plain_step_count():
+    """adapt_batch_plain's step count (the bound of the affine kernel in
+    chip_smoke.py) against the loop itself: 0 where inactive, at most
+    max_iterations, iters + 1 where accepted; and the loop capped at m
+    steps gives the same result for every keypoint that ran at most m,
+    and m steps to the others."""
+    import dataclasses
+
+    import torch
+
+    from hesaff_tpu_torch.ops import cuda_affine
+
+    stacks, img_idx, src, x, y, s, active = _case(0, 2, 3, 200, 160, 96, 4)
+    args = affine_shape.adapt_args(t(stacks), t(img_idx), t(src), t(x),
+                                   t(y), t(s), 1.0, PCFG, active=t(active))
+    ref, steps = cuda_affine.adapt_plain(*args, return_steps=True)
+    act = t(active)
+    assert bool((steps[~act] == 0).all())
+    assert bool((steps[act] >= 1).all())
+    assert bool((steps <= PCFG.max_iterations).all())
+    assert bool((steps == PCFG.max_iterations).any())
+    assert bool((steps[ref.ok] == ref.iters[ref.ok] + 1).all())
+    m = 3
+    cap = dataclasses.replace(PCFG, max_iterations=m)
+    short, csteps = cuda_affine.adapt_plain(*args[:-1], cap,
+                                            return_steps=True)
+    assert torch.equal(csteps, torch.clamp(steps, max=m))
+    done = steps <= m
+    assert bool(done.any()) and bool((~done & act).any())
+    for f in ("ok", "u11", "u12", "u21", "u22", "iters"):
+        assert torch.equal(getattr(short, f)[done], getattr(ref, f)[done]), f
+    assert not bool(short.ok[~done].any())

@@ -11,7 +11,8 @@ Tolerances are the kernels' (chip_smoke.py states the same): blur atol
 tap count, in stack slots and blur-only); the octave-wide walk exact (ok, cand,
 cells) at every level with its field table at rtol 1e-6 / atol 1e-5 at
 every pixel; the maps kernel with equal mask, nan and edge flags and
-the maps at rtol 1e-6 / atol 1e-5 where the mask is set; the sparse
+the maps at rtol 1e-6 / atol 1e-5 where the mask is set (bit-equal
+everywhere on odd shapes, strided views and planes with NaN and inf); the sparse
 octave path equal to its CPU run in every field but s (rtol 1e-6, the
 exp2 wobble); the affine loop under the 2% ok/iteration flip budget
 with U rtol 1e-4 / atol 5e-5; the patch kernel with equal bad flags
@@ -30,6 +31,7 @@ from _torch_parity import assert_affine_parity, smooth_stacks
 
 pytestmark = pytest.mark.cuda
 CFG = HesaffConfig()
+AFFINE_FIELDS = ("ok", "u11", "u12", "u21", "u22", "iters")
 
 
 @pytest.fixture
@@ -195,6 +197,46 @@ def test_detect_maps_kernel(dev, H, W):
                                atol=1e-5)
 
 
+def _maps_planes(rng, dev, H, W, strided, special):
+    """Three (2, H, W) DoH-like planes; strided: views of one (2, 5, H,
+    W) stack, as detect_level reads a ladder; special: about 1% of the
+    pixels NaN and 1% each +inf and -inf."""
+    stack = smooth_stacks(rng, 2, 5, H, W) * 40.0
+    if special:
+        u = rng.uniform(size=stack.shape)
+        stack[u < 0.01] = np.nan
+        stack[(u >= 0.01) & (u < 0.02)] = np.inf
+        stack[(u >= 0.02) & (u < 0.03)] = -np.inf
+    stack = torch.as_tensor(stack, device=dev)
+    if strided:
+        return [stack[:, l] for l in (0, 2, 4)]
+    return [stack[:, l].contiguous() for l in (0, 2, 4)]
+
+
+@pytest.mark.parametrize("H,W,strided,special", [
+    (13, 61, False, False), (70, 91, True, False), (37, 33, False, True),
+    (130, 7, True, True), (200, 243, True, True)])
+def test_detect_maps_kernel_edges(dev, H, W, strided, special):
+    """K3 at heights under a warp's 16 rows and a block's 64, widths off
+    its 30-column strips and off 4, on strided plane views and on planes
+    with NaN and +-inf: flags equal, and the maps bit-equal to the plain
+    version's everywhere (the solve is operation for operation)."""
+    from hesaff_tpu_torch.ops import cuda_detect
+
+    planes = _maps_planes(np.random.default_rng(11), dev, H, W, strided,
+                          special)
+    before = cuda_detect.MAPS_LAUNCHES
+    maps, nan_flag, edge, mask = cuda_detect.detect_maps(*planes, CFG)
+    pmaps, pnan, pedge, pmask = cuda_detect.detect_maps_plain(*planes, CFG)
+    torch.cuda.synchronize()
+    assert cuda_detect.MAPS_LAUNCHES == before + 1
+    assert torch.equal(mask, pmask) and torch.equal(nan_flag, pnan)
+    assert torch.equal(edge, pedge)
+    assert torch.equal(maps, pmaps)
+    if special:
+        assert bool(pnan.any())
+
+
 @pytest.mark.parametrize("caps", ["default", "small"])
 def test_sparse_octave_on_gpu_matches_cpu(dev, caps):
     """The sparse octave path (K3, the windowed walk, dedup, compaction)
@@ -250,6 +292,74 @@ def test_affine_kernel(dev, H, W, margin):
     ref = cuda_affine.adapt_plain(*args)
     torch.cuda.synchronize()
     assert_affine_parity(ref, out, args[6], min_matched=4)
+
+
+def _affine_case(rng, dev, G, K, act_share=0.85, H=96, W=120):
+    """adapt's arguments for K keypoints at any position (some grids
+    reach outside the image) and ratio 0.8-3.5 on a window 24 px under
+    the image's width, so that some grids leave it inside the image."""
+    import dataclasses
+
+    cfg = dataclasses.replace(CFG, smm_window_size=G)
+    B, L = 2, 3
+    g = lambda a: torch.as_tensor(a, device=dev)
+    return [g(smooth_stacks(rng, B, L, H, W)), g(rng.integers(0, B, K)),
+            g(rng.integers(0, L, K)),
+            g(rng.uniform(-2, W + 2, K).astype(np.float32)),
+            g(rng.uniform(-2, H + 2, K).astype(np.float32)),
+            g(rng.uniform(0.8, 3.5, K).astype(np.float32)),
+            g(rng.uniform(size=K) < act_share), min(H, W) - 24, cfg]
+
+
+@pytest.mark.parametrize("G", [19, 15])
+def test_affine_kernel_paths(dev, G):
+    """K4's instance for the configuration's 19 x 19 grid and its generic
+    instance (G = 15) against the plain loop, on keypoints that converge,
+    diverge, run all 16 steps, sample outside the image, and sample
+    inside it but outside the window; 301 slots, a multiple of neither
+    the block's 4 warps nor a warp's 32 lanes."""
+    from hesaff_tpu_torch.ops import cuda_affine
+
+    args = _affine_case(np.random.default_rng(5), dev, G, 301)
+    cfg, act, ratio = args[-1], args[6], args[5]
+    before = cuda_affine.LAUNCHES
+    out = cuda_affine.adapt(*args)
+    ref, steps = cuda_affine.adapt_plain(*args, return_steps=True)
+    # the whole image as the window: only the window test differs
+    whole = cuda_affine.adapt_plain(*args[:7], 96, cfg)
+    torch.cuda.synchronize()
+    assert cuda_affine.LAUNCHES == before + 1
+    reach = (G // 2) * ratio
+    outside = act & ((args[3] < reach) | (args[4] < reach)
+                     | (args[3] + reach > 119) | (args[4] + reach > 95))
+    assert bool((steps == cfg.max_iterations).any())
+    assert bool((act & ~whole.ok & (steps < cfg.max_iterations)).any())
+    assert bool((whole.ok & ~ref.ok).any()) and bool(outside.any())
+    assert_affine_parity(ref, out, act, min_matched=40)
+    assert not bool(out.ok[~act].any()) and bool((out.iters[~act] == 0).all())
+    eye = torch.tensor([1.0, 0.0, 0.0, 1.0], device=dev)
+    u = torch.stack([out.u11, out.u12, out.u21, out.u22], dim=1)
+    assert bool((u[~act] == eye).all())
+
+
+@pytest.mark.parametrize("K,act_share", [(0, 1.0), (64, 0.0), (1, 1.0),
+                                         (7, 1.0), (133, 0.5)])
+def test_affine_kernel_slot_counts(dev, K, act_share):
+    """K4 over no slots, over slots all inactive (each written as ok 0,
+    U = I, iters 0), and over slot counts off the block and warp sizes,
+    against the plain loop."""
+    from hesaff_tpu_torch.ops import cuda_affine
+
+    args = _affine_case(np.random.default_rng(K), dev, 19, K, act_share)
+    out = cuda_affine.adapt(*args)
+    ref = cuda_affine.adapt_plain(*args)
+    torch.cuda.synchronize()
+    for f in AFFINE_FIELDS:
+        assert getattr(out, f).shape == (K,)
+    if not bool(args[6].any()):
+        for f in AFFINE_FIELDS:
+            assert torch.equal(getattr(out, f), getattr(ref, f)), f
+    assert_affine_parity(ref, out, args[6], min_matched=0)
 
 
 def test_extract_on_gpu_matches_cpu(dev):
