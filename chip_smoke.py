@@ -22,13 +22,23 @@ ms by kernel and of torch.cat's kernels, and the host ms of each
 stage's span in dist.py.  Phase 6 runs extract_batch on two 4032x3024
 images, the full frame of a 12 MP camera, whose octave 0 (2^23 px or
 more) takes the sparse detection path through K3, and gates image 0
-against a CPU run.  Exits non-zero on any failed phase; on
-success the last line of standard output is
+against a CPU run.  Phase 7 runs the path after the descriptors on
+the card: extract() of bench image 0 cropped by 64 px multiples,
+match_descriptors against phase 5's image 0 (knn2 bit-equal to a CPU
+run), ransac_homography (the crop's translation within 1 px at its
+corners, inliers within 2% of a CPU run), repeatability under that
+translation (within 0.02 of the CPU extraction's), write_sift_file of
+phase 5's 27,774 features from CUDA tensors (read back; native and
+Python writers byte-equal), and rank_images of images 0-3 over the 16
+images (each first, votes equal to a CPU run), and times knn2 at
+27,774 x 27,774 against its bound, RANSAC and the file write.  Exits
+non-zero on any failed phase; on success the last line of standard
+output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it holds the per-kernel record: launches in one
-phase-6 call (every kernel runs there) and in phases 4, 5 and 6
+phase-6 call (every kernel runs there) and in phases 4, 5, 6 and 7
 (checked: K1 once a ladder level plus the initial blur, K6 once), max
 abs error against the plain version, the kernel's and the plain
 version's ms (one pair of CUDA events around back-to-back launches, 20
@@ -63,6 +73,10 @@ BATCH, HEIGHT, WIDTH = 16, 640, 800
 # tiles cropped to LARGE_H x LARGE_W, seeds from LARGE_SEED on
 LARGE_BATCH, LARGE_H, LARGE_W = 2, 3024, 4032
 TILES_Y, TILES_X, LARGE_SEED = 5, 6, 1000
+# phase 7: bench image 0 cropped by multiples of 64 px on each axis
+# ((y0, y1), (x0, x1)), so every octave's sampling grid stays aligned and
+# the crop's homography to image 0 is an exact translation
+CROP = ((64, 576), (64, 736))
 
 KERNELS = (
     # name, source, TPU kernel it replaces
@@ -196,18 +210,20 @@ def check_k1_k6_launches(launches: dict, H: int, W: int, cfg,
           f"{launches['sift_desc']} times, not once")
 
 
-def check_dense_launches(launches: dict, cfg, what: str) -> None:
-    """An 800x640 batch runs every kernel but K3: its octaves are all
-    under 2^23 px, so they take the dense walk, one K2 launch each."""
+def check_dense_launches(launches: dict, cfg, what: str, H: int = HEIGHT,
+                         W: int = WIDTH) -> None:
+    """An H x W input (800x640 by default) whose octaves are all under
+    2^23 px runs every kernel but K3: each octave takes the dense walk,
+    one K2 launch each."""
     for k, v in launches.items():
         if k == "detect_maps":
             check(v == 0, f"{what}: K3 launched {v} times on the dense path")
         else:
             check(v > 0, f"{what}: kernel {k} never launched on the path")
-    n = dense_octaves(HEIGHT, WIDTH, cfg)
+    n = dense_octaves(H, W, cfg)
     check(launches["detect_walk"] == n, f"{what}: K2 launched "
           f"{launches['detect_walk']} times, not once per octave ({n})")
-    check_k1_k6_launches(launches, HEIGHT, WIDTH, cfg, what)
+    check_k1_k6_launches(launches, H, W, cfg, what)
 
 
 def bench_config():
@@ -752,9 +768,10 @@ def _image_features(d, b: int):
     return Features(**{k: g(k) for k in Features._fields})
 
 
-def phase_grouped(images_np, cfg, dev) -> dict:
+def phase_grouped(images_np, cfg, dev):
     """The serving path: dist.extraction_step_grouped with bench.py's
-    group table (per-image cap 1024, batch 16)."""
+    group table (per-image cap 1024, batch 16).  Returns the launches,
+    the card's DenseFeatures and the CPU run's of image 0."""
     import torch
 
     from hesaff_tpu_torch import dist
@@ -803,7 +820,7 @@ def phase_grouped(images_np, cfg, dev) -> dict:
     log(f"  CPU plain grouped run of image 0: "
         f"{time.perf_counter() - t0:.1f} s")
     _gate(_image_features(out, 0), _image_features(cpu, 0), "phase 5")
-    return launches
+    return launches, out, cpu
 
 
 def phase_large(large_np, cfg, dev) -> dict:
@@ -885,6 +902,201 @@ def phase_large(large_np, cfg, dev) -> dict:
           f"large: candidate_overflow gpu {s0.candidate_overflow} cpu "
           f"{cs.candidate_overflow}")
     _gate(feats[0], cpu[0], "phase 6")
+    return launches
+
+
+def phase_after(images_np, dense, dense_cpu0, cfg, dev, card: str) -> dict:
+    """Phase 7, after the descriptors: the path a user runs from an
+    image to a verified match, a repeatability score, an Oxford file and
+    a ranked list, on the card.  It uses phase 5's features of the 16
+    bench images and one more image, bench image 0 cropped by CROP,
+    whose homography to image 0 is an exact translation.  The path
+    (extract() of the crop, match_descriptors, ransac_homography,
+    repeatability, write_sift_file of every feature of phase 5, and
+    rank_images of images 0-3 over the 16 images' index) runs once with
+    the launch counts set to 0 just before it and read just after, then
+    once more for its warm step times; each step's result is held
+    against a CPU run, and knn2 at 27,774 x 27,774, RANSAC and the file
+    write are timed."""
+    import torch
+
+    from hesaff_tpu_torch import extract, native
+    from hesaff_tpu_torch.evaluate import features_to_ellipses, repeatability
+    from hesaff_tpu_torch.match import knn2, match_descriptors
+    from hesaff_tpu_torch.ransac import ransac_homography
+    from hesaff_tpu_torch.retrieval import build_index, query_votes, rank_images
+    from hesaff_tpu_torch.sift_io import (ellipse_abc, read_sift_file,
+                                          write_sift_file, write_sift_python)
+
+    (y0, y1), (x0, x1) = CROP
+    crop = np.ascontiguousarray(images_np[0, y0:y1, x0:x1])
+    Hc = np.array([[1.0, 0.0, -x0], [0.0, 1.0, -y0], [0.0, 0.0, 1.0]])
+    feats = [_image_features(dense, b) for b in range(BATCH)]
+    f0 = feats[0]
+    v = dense.valid
+    geo = [getattr(dense, k)[v] for k in ("x", "y", "s", "a11", "a12",
+                                          "a21", "a22", "desc")]
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "phase7.hesaff.sift")
+    pts = lambda f, i: np.stack([f.x[i], f.y[i]], 1)
+    ell = lambda f: features_to_ellipses(f, cfg.mr_size)
+
+    def run_path():
+        """The path once: its outputs and each step's host ms, the card
+        synchronised around every step."""
+        ms, out = {}, {}
+
+        def step(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) * 1e3
+            return out[name]
+
+        fc = step("extract", lambda: extract(crop, cfg, device=dev))
+        i1, i2 = step("match", lambda: match_descriptors(f0.desc, fc.desc,
+                                                         device=dev))
+        step("ransac", lambda: ransac_homography(pts(f0, i1), pts(fc, i2),
+                                                 device=dev))
+        step("repeatability", lambda: repeatability(
+            ell(f0), ell(fc), Hc, crop.shape, f0.desc, fc.desc,
+            shape1=images_np[0].shape, device=dev))
+        step("write", lambda: write_sift_file(path, *geo, cfg.mr_size))
+        index = step("index", lambda: build_index([f.desc for f in feats]))
+        step("rank", lambda: [rank_images(index, feats[q].desc, device=dev)
+                              for q in range(4)])
+        return out, ms
+
+    reset_counts()
+    out, cold = run_path()
+    launches = read_counts()
+    _, warm = run_path()
+    fc, (i1, i2), res, rep = (out[k] for k in ("extract", "match", "ransac",
+                                               "repeatability"))
+    index, ranked = out["index"], out["rank"]
+    H, W = crop.shape
+    check_dense_launches(launches, cfg, "after", H, W)
+    fmt = lambda d: ", ".join(f"{k} {v:.1f}" for k, v in d.items())
+    log(f"phase 7 after the descriptors, image 0 ({f0.n}) and its crop "
+        f"{CROP} ({H}x{W}, {fc.n} features): launches {launches}; the path "
+        f"on {card}, host ms a step (synchronised), first run: {fmt(cold)} "
+        f"(sum {sum(cold.values()):.1f}); second run: {fmt(warm)} (sum "
+        f"{sum(warm.values()):.1f})")
+
+    # knn2 of the match: bit-equal to a CPU run on the same descriptors
+    same = True
+    for a, b in ((f0.desc, fc.desc), (fc.desc, f0.desc)):
+        g, c = knn2(a, b, device=dev), knn2(a, b, device="cpu")
+        same &= all(bool(torch.equal(x.cpu(), y)) for x, y in zip(g, c))
+    check(same, "after: knn2 on the card not bit-equal to the CPU run")
+    c1, c2 = match_descriptors(f0.desc, fc.desc, device="cpu")
+    check(np.array_equal(i1, c1) and np.array_equal(i2, c2),
+          "after: match pairs differ from the CPU run")
+    exact = int((np.abs(pts(f0, i1) - np.array([x0, y0])
+                        - pts(fc, i2)).max(1) < 1e-3).sum())
+    log(f"  match_descriptors: {len(i1)} tentative matches ({exact} at the "
+        f"crop's offset within 1e-3 px); knn2 idx/dist/dist2 both ways "
+        f"bit-equal to the CPU run: {same}; pairs equal: "
+        f"{np.array_equal(i1, c1) and np.array_equal(i2, c2)}")
+
+    # RANSAC: the translation at the crop's corners, and the CPU's count
+    Hm = res.model.double().cpu().numpy()
+    corners = np.array([[x0, y0, 1.0], [x1, y0, 1.0], [x0, y1, 1.0],
+                        [x1, y1, 1.0]])
+    proj = corners @ Hm.T
+    err = float(np.abs(proj[:, :2] / proj[:, 2:] - corners[:, :2]
+                       + np.array([x0, y0])).max())
+    cpu_res = ransac_homography(pts(f0, i1), pts(fc, i2), device="cpu")
+    n_g, n_c = int(res.num_inliers), int(cpu_res.num_inliers)
+    check(err < 1.0, f"after: RANSAC translation off by {err} px at a "
+          "corner")
+    check(abs(n_g - n_c) <= max(1, 0.02 * n_c),
+          f"after: RANSAC inliers card {n_g} CPU {n_c}")
+    check(n_g >= 0.5 * len(i1), f"after: RANSAC kept {n_g} of {len(i1)}")
+    log(f"  ransac_homography (1024 hypotheses): {n_g} inliers of "
+        f"{len(i1)} (CPU run {n_c}); corner error {err:.4g} px (< 1)")
+
+    # repeatability: the CPU extraction's value within 0.02
+    f0c = _image_features(dense_cpu0, 0)
+    fcc = extract(crop, cfg, device="cpu")
+    rep_c = repeatability(ell(f0c), ell(fcc), Hc, crop.shape, f0c.desc,
+                          fcc.desc, shape1=images_np[0].shape, device="cpu")
+    check(abs(rep.repeatability - rep_c.repeatability) <= 0.02,
+          f"after: repeatability card {rep.repeatability} CPU "
+          f"{rep_c.repeatability}")
+    log(f"  repeatability under the translation: card {rep.repeatability:.4f}"
+        f" ({rep.num_correspondences} of n1 {rep.n1} / n2 {rep.n2}), "
+        f"matching score {rep.matching_score:.4f} ({rep.num_matches}); CPU "
+        f"extraction {rep_c.repeatability:.4f} ({rep_c.num_correspondences}"
+        f"), matching score {rep_c.matching_score:.4f} (within 0.02)")
+
+    # the Oxford file of the card's features: read back; the native and
+    # Python writers byte-equal where the native library built
+    n_valid = int(v.sum())
+    back = read_sift_file(path)
+    host = [t.cpu().numpy() for t in geo]
+    check(len(back["u"]) == n_valid and np.array_equal(back["desc"],
+                                                       host[-1]),
+          "after: the file does not read back")
+    check(np.abs(back["u"] - host[0]).max() <= 1e-3,
+          "after: the file's u differ from x")
+    e = ellipse_abc(*(np.asarray(a, np.float64)
+                      for a in (host[3], host[4], host[5], host[6],
+                                host[2])), cfg.mr_size)
+    py = os.path.join(out_dir, "phase7_python.hesaff.sift")
+    t0 = time.perf_counter()
+    write_sift_python(py, host[0], host[1], *e, host[-1])
+    py_ms = (time.perf_counter() - t0) * 1e3
+    writer = "native" if native.available() else "Python (no native build)"
+    with open(path, "rb") as fa, open(py, "rb") as fb:
+        equal = fa.read() == fb.read()
+    if native.available():
+        check(equal, "after: native and Python writers differ")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_sift_file(path, *geo, cfg.mr_size)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    write_ms = float(np.median(walls))
+    log(f"  write_sift_file of {n_valid} card features ({writer} writer, "
+        f"from CUDA tensors): {os.path.getsize(path)} bytes, read back; "
+        f"native == Python bytes: {equal}; {write_ms:.3f} ms (host clock, "
+        f"median of {[round(w, 3) for w in walls]}); Python writer "
+        f"{py_ms:.1f} ms; {card}")
+
+    # retrieval: each query ranks itself first, votes equal to the CPU's
+    for q in range(4):
+        votes_c = query_votes(index, feats[q].desc, device="cpu")[0]
+        votes_g = query_votes(index, feats[q].desc, device=dev)[0]
+        check(bool(ranked[q]) and ranked[q][0][0] == q,
+              f"after: query {q} ranks {ranked[q][:1]} first")
+        check(np.array_equal(votes_g, votes_c),
+              f"after: query {q} votes differ from the CPU run")
+    log(f"  rank_images over {index.n_images} images ({len(index.desc)} "
+        f"descriptors), queries 0-3: tops {[r[:2] for r in ranked]}; votes "
+        "equal to the CPU run")
+
+    # times on the card
+    allq = geo[-1].to(torch.float32)
+    N = allq.shape[0]
+    kms = timed(lambda: knn2(allq, allq, device=dev), 5)
+    # query and database read once, idx / dist / dist2 written once
+    flops = 2.0 * N * N * 128
+    kb = bound(2 * nbytes(allq) + 3 * 4 * N, flops)
+    p1t = torch.as_tensor(pts(f0, i1), dtype=torch.float32, device=dev)
+    p2t = torch.as_tensor(pts(fc, i2), dtype=torch.float32, device=dev)
+    rms = timed(lambda: ransac_homography(p1t, p2t), 5)
+    log(f"  knn2 {N} x {N} on {card}: {kms:.3f} ms (CUDA events, 5 calls "
+        f"after a warm-up); bound 2*N*M*128 = {flops:.3g} f32 operations "
+        f"over 67 TFLOP/s = {kb['bound_ms']:.3f} ms ({kb['bound_by']}), "
+        f"{kb['bound_ms'] / kms:.3f} of it")
+    log(f"  ransac_homography, 1024 hypotheses, {len(i1)} points on {card}: "
+        f"{rms:.3f} ms (CUDA events, 5 calls after a warm-up)")
+    log(f"  write_sift_file, {n_valid} features on {card}: {write_ms:.3f} ms "
+        "(host clock)")
     return launches
 
 
@@ -996,9 +1208,10 @@ def main() -> int:
     del large
     torch.cuda.empty_cache()
     phase_golden(dev)
-    launches = {"4": phase_batch(images_np, cfg, dev),
-                "5": phase_grouped(images_np, cfg, dev),
-                "6": phase_large(large_np, cfg, dev)}
+    launches = {"4": phase_batch(images_np, cfg, dev)}
+    launches["5"], dense, dense_cpu0 = phase_grouped(images_np, cfg, dev)
+    launches["6"] = phase_large(large_np, cfg, dev)
+    launches["7"] = phase_after(images_np, dense, dense_cpu0, cfg, dev, card)
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed")
         return 1

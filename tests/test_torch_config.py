@@ -1,4 +1,7 @@
-"""The port's own HesaffConfig and masks equal the JAX package's."""
+"""The port's own HesaffConfig and masks, and its copies of the JAX
+package's numpy-only code (the Oxford export's ellipse and number
+formatting, the overlap scorer, the PNM fallback), equal the JAX
+package's on seeded inputs."""
 
 import dataclasses
 import os
@@ -9,8 +12,10 @@ import numpy as np
 import pytest
 
 from hesaff_tpu import config as jconfig
+from hesaff_tpu import evaluate as jevaluate
+from hesaff_tpu import sift_io as jsift_io
 from hesaff_tpu.ops import masks as jmasks
-from hesaff_tpu_torch import config
+from hesaff_tpu_torch import config, evaluate, sift_io
 from hesaff_tpu_torch.ops import masks
 
 _DERIVED = ("final_threshold", "positive_threshold", "negative_threshold",
@@ -76,5 +81,68 @@ def test_every_port_module_imports_without_the_jax_package():
     assert r.returncode == 0, r.stderr
     names = set(r.stdout.split())
     for mod in ("dist", "ops.cuda_patches", "ops.cuda_sift", "ops.masks",
-                "config", "batch", "pipeline"):
+                "config", "batch", "pipeline", "sift_io", "native", "match",
+                "evaluate", "ransac", "retrieval", "cli"):
         assert f"hesaff_tpu_torch.{mod}" in names
+
+
+def _random_ellipses(rng, n, spread=40.0):
+    """(n, 5) [u, v, a, b, c] rows of positive-definite shapes, radii
+    2-30 px, centres within `spread` px."""
+    th = rng.uniform(0, np.pi, n)
+    r1 = np.exp(rng.uniform(np.log(2.0), np.log(30.0), n))
+    r2 = r1 * rng.uniform(0.2, 1.0, n)
+    c, s = np.cos(th), np.sin(th)
+    a = c * c / r1 ** 2 + s * s / r2 ** 2
+    b = c * s * (1 / r1 ** 2 - 1 / r2 ** 2)
+    cc = s * s / r1 ** 2 + c * c / r2 ** 2
+    return np.stack([rng.uniform(0, spread, n), rng.uniform(0, spread, n),
+                     a, b, cc], 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_export_copies_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(0, 1, (4, 500))
+    s = rng.uniform(1, 40, 500)
+    for mine, ref in zip(sift_io.ellipse_abc(*a, s, 5.196),
+                         jsift_io.ellipse_abc(*a, s, 5.196)):
+        np.testing.assert_array_equal(mine, ref)
+    vals = np.concatenate([rng.normal(0, 1e3, 200), rng.normal(0, 1e-4, 200),
+                           np.float32(rng.normal(0, 300, 200)),
+                           [0.0, -0.0, 1e-7, 123456.5, 1e21]])
+    assert ([sift_io.format_float(float(v)) for v in vals]
+            == [jsift_io.format_float(float(v)) for v in vals])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_overlap_scorer_copies_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    e1, e2 = _random_ellipses(rng, 60), _random_ellipses(rng, 70)
+    for normalize in (True, False):
+        np.testing.assert_array_equal(
+            evaluate._overlap_matrix(e1, e2, normalize),
+            jevaluate._overlap_matrix(e1, e2, normalize))
+    E = lambda e: np.stack([np.stack([e[:, 2], e[:, 3]], -1),
+                            np.stack([e[:, 3], e[:, 4]], -1)], 1)
+    p1, p2 = e1[:50], e2[:50]
+    for fn in ("_pair_overlap", "_pair_overlap_exact"):
+        np.testing.assert_array_equal(
+            getattr(evaluate, fn)(p1, E(p1), p2, E(p2), True),
+            getattr(jevaluate, fn)(p1, E(p1), p2, E(p2), True))
+    H = np.array([[1.05, 0.1, 3.0], [-0.08, 0.97, -2.0], [1e-4, 2e-4, 1.0]])
+    np.testing.assert_array_equal(evaluate._project_ellipses(e1, H),
+                                  jevaluate._project_ellipses(e1, H))
+
+
+@pytest.mark.parametrize("magic,comment", [(b"P6", b""), (b"P5", b""),
+                                           (b"P6", b"# made by a test\n")])
+def test_pnm_fallback_copy_matches_jax(tmp_path, magic, comment):
+    rng = np.random.default_rng(len(comment) + len(magic))
+    ch = 3 if magic == b"P6" else 1
+    pix = rng.integers(0, 256, (13, 17, ch)).astype(np.uint8)
+    path = str(tmp_path / "img.pnm")
+    with open(path, "wb") as f:
+        f.write(magic + b"\n" + comment + b"17 13\n255\n" + pix.tobytes())
+    np.testing.assert_array_equal(sift_io._load_pnm_gray(path),
+                                  jsift_io._load_pnm_gray(path))

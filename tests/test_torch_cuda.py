@@ -17,7 +17,12 @@ octave path equal to its CPU run in every field but s (rtol 1e-6, the
 exp2 wobble); the affine loop under the 2% ok/iteration flip budget
 with U rtol 1e-4 / atol 5e-5; the patch kernel with equal bad flags
 and patches at atol 1e-3; SIFT within one step and >= 99% exact (its masked uint8 entry equal to
-its float entry, zero rows where not valid).
+its float entry, zero rows where not valid).  After the descriptors
+(no kernel of the port's own): knn2 on the card bit-equal to its CPU
+run on uint8 descriptors (a single database row's padded dist2 at rtol
+1e-6), match pairs equal; RANSAC and the pose to tests/test_ransac.py's
+thresholds; the Oxford file from CUDA tensors byte-equal to the one
+from their numpy copies.
 """
 
 import os
@@ -599,3 +604,131 @@ def test_upscale_direct_branch_on_gpu_matches_cpu(dev, entry):
         j = int(dd.argmin())
         assert dd[j] < 0.01
         assert np.abs(gd[j].astype(int) - cd[i].astype(int)).max() <= 2
+
+
+def homography_scene(n=200, outlier_frac=0.3, seed=0):
+    """tests/test_ransac.py's make_homography_data, without its JAX
+    import (tests/test_torch_ransac.py holds the two equal)."""
+    rng = np.random.RandomState(seed)
+    H = np.array([[1.1, 0.1, 5.0], [-0.05, 0.95, -3.0], [1e-4, -2e-4, 1.0]])
+    p1 = rng.rand(n, 2) * 500
+    ph = np.concatenate([p1, np.ones((n, 1))], axis=1) @ H.T
+    p2 = ph[:, :2] / ph[:, 2:3]
+    p2 += rng.randn(n, 2) * 0.3
+    n_out = int(n * outlier_frac)
+    p2[:n_out] = rng.rand(n_out, 2) * 500
+    return p1, p2, H, n_out
+
+
+def two_view_scene(n=300, outlier_frac=0.2, seed=1):
+    """tests/test_ransac.py's make_two_view_data, without its JAX
+    import (tests/test_torch_ransac.py holds the two equal)."""
+    rng = np.random.RandomState(seed)
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    angle = 0.15
+    R = np.array([[np.cos(angle), 0, np.sin(angle)], [0, 1, 0],
+                  [-np.sin(angle), 0, np.cos(angle)]])
+    t = np.array([0.5, 0.05, 0.1])
+    X = rng.rand(n, 3) * [4, 3, 4] + [-2, -1.5, 4]
+    x1 = (X / X[:, 2:3]) @ K.T
+    X2 = X @ R.T + t
+    x2 = (X2 / X2[:, 2:3]) @ K.T
+    p1 = x1[:, :2] + rng.randn(n, 2) * 0.3
+    p2 = x2[:, :2] + rng.randn(n, 2) * 0.3
+    n_out = int(n * outlier_frac)
+    p2[:n_out] = rng.rand(n_out, 2) * [640, 480]
+    return p1, p2, K, R, t, n_out
+
+
+@pytest.mark.parametrize("nq,m,block", [(3000, 7000, 4096), (500, 1, 4096),
+                                        (257, 1000, 256)])
+def test_knn2_on_gpu_equals_cpu(dev, nq, m, block):
+    """uint8-valued descriptors with duplicate rows: idx, dist and dist2
+    bit-equal to the CPU run (every term an integer below 2^24; with
+    M == 1 dist2 is a padding row's distance, not exact: rtol 1e-6)."""
+    from hesaff_tpu_torch import match
+
+    rng = np.random.default_rng(m)
+    db = rng.integers(0, 256, (m, 128)).astype(np.uint8)
+    db[rng.integers(0, m, m // 10)] = db[rng.integers(0, m, m // 10)]
+    q = rng.integers(0, 256, (nq, 128)).astype(np.uint8)
+    q[: nq // 3] = db[rng.integers(0, m, nq // 3)]
+    g = match.knn2(q, db, block=block, device=dev)
+    c = match.knn2(q, db, block=block, device="cpu")
+    assert g.idx.device.type == "cuda"
+    assert torch.equal(g.idx.cpu(), c.idx)
+    assert torch.equal(g.dist.cpu(), c.dist)
+    if m == 1:
+        np.testing.assert_allclose(g.dist2.cpu().numpy(), c.dist2.numpy(),
+                                   rtol=1e-6)
+    else:
+        assert torch.equal(g.dist2.cpu(), c.dist2)
+    pairs = match.match_descriptors(q, db, device=dev)
+    for a, b in zip(pairs, match.match_descriptors(q, db, device="cpu")):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ransac_homography_on_gpu(dev, seed):
+    """tests/test_ransac.py's outcome thresholds, on the card; numpy
+    input with no device runs there too."""
+    from hesaff_tpu_torch import ransac
+
+    p1, p2, H, n_out = homography_scene()
+    res = ransac.ransac_homography(p1, p2, threshold=9.0,
+                                   num_hypotheses=512, seed=seed)
+    assert res.model.device.type == "cuda"
+    inl = res.inliers.cpu().numpy()
+    assert inl[n_out:].mean() > 0.97
+    assert inl[:n_out].mean() < 0.05
+    Hm = res.model.cpu().numpy().astype(np.float64)
+    np.testing.assert_allclose(Hm / Hm[2, 2], H / H[2, 2], rtol=0.05,
+                               atol=0.05)
+    cpu = ransac.ransac_homography(p1, p2, threshold=9.0,
+                                   num_hypotheses=512, seed=seed,
+                                   device="cpu")
+    assert abs(int(res.num_inliers) - int(cpu.num_inliers)) <= 0.01 * len(p1)
+
+
+def test_ransac_fundamental_and_pose_on_gpu(dev):
+    """F, E and the cheirality pose (batched least squares through the
+    `gels` driver) on the card, to tests/test_ransac.py's thresholds."""
+    from hesaff_tpu_torch import ransac
+
+    p1, p2, K, R, t, n_out = two_view_scene()
+    res = ransac.ransac_fundamental(p1, p2, threshold=3.0, device=dev)
+    inl = res.inliers.cpu().numpy()
+    assert inl[n_out:].mean() > 0.95
+    assert inl[:n_out].mean() < 0.1
+    E = ransac.essential_from_fundamental(res.model, K, K)
+    Kinv = np.linalg.inv(K)
+    sel = np.nonzero(inl)[0]
+    h1 = np.concatenate([p1[sel], np.ones((len(sel), 1))], 1) @ Kinv.T
+    h2 = np.concatenate([p2[sel], np.ones((len(sel), 1))], 1) @ Kinv.T
+    Rm, tm = ransac.decompose_essential(E, h1[:, :2], h2[:, :2])
+    assert Rm.device.type == "cuda"
+    Rm, tm = (Rm.cpu().numpy().astype(np.float64),
+              tm.cpu().numpy().astype(np.float64))
+    ang = np.degrees(np.arccos(np.clip((np.trace(Rm.T @ R) - 1) / 2, -1, 1)))
+    assert ang < 1.0
+    assert abs(tm @ t / (np.linalg.norm(tm) * np.linalg.norm(t))) > 0.98
+
+
+def test_write_sift_file_from_gpu_tensors(dev, tmp_path):
+    """CUDA tensors and their numpy copies write the same bytes."""
+    from hesaff_tpu_torch import sift_io
+
+    rng = np.random.default_rng(0)
+    k = 300
+    geo = [rng.uniform(0, 800, k), rng.uniform(0, 600, k),
+           rng.uniform(1, 30, k), rng.uniform(0.5, 2, k),
+           rng.uniform(-0.5, 0.5, k), rng.uniform(-0.5, 0.5, k),
+           rng.uniform(0.5, 2, k)]
+    geo = [a.astype(np.float32) for a in geo]
+    desc = rng.integers(0, 256, (k, 128)).astype(np.uint8)
+    a, b = str(tmp_path / "gpu.sift"), str(tmp_path / "host.sift")
+    sift_io.write_sift_file(a, *[torch.as_tensor(g, device=dev) for g in geo],
+                            torch.as_tensor(desc, device=dev), 5.196)
+    sift_io.write_sift_file(b, *geo, desc, 5.196)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()

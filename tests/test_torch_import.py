@@ -1,6 +1,6 @@
 """The PyTorch port imports neither JAX nor the JAX package, a CPU run
 launches no kernel, and an entry point given no device runs on the GPU
-or raises."""
+or raises: extraction, matching, RANSAC and retrieval alike."""
 
 import os
 import subprocess
@@ -22,6 +22,8 @@ def test_port_imports_without_jax():
         "from hesaff_tpu_torch import dist, params, patches, sift\n"
         "from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, "
         "cuda_build, cuda_detect, cuda_patches, cuda_sift, masks\n"
+        "from hesaff_tpu_torch import sift_io, native, match, evaluate, "
+        "ransac, retrieval, cli\n"
         "assert 'jaxlib' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.startswith('hesaff_tpu.')]\n"
         "print('ok')\n"
@@ -54,3 +56,33 @@ def test_extract_without_device_needs_a_gpu():
         pytest.skip("a CUDA device is present: extract() runs on it")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         extract(np.zeros((64, 64), np.float32))
+
+
+def _no_device_calls():
+    from hesaff_tpu_torch import evaluate, match, ransac, retrieval
+
+    rng = np.random.default_rng(0)
+    desc = rng.integers(0, 256, (20, 128)).astype(np.uint8)
+    pts = rng.random((20, 2)) * 100
+    ell = np.tile([10.0, 10.0, 0.01, 0.0, 0.01], (20, 1))
+    return {
+        "match_descriptors": lambda: match.match_descriptors(desc, desc),
+        "knn2": lambda: match.knn2(desc, desc),
+        "ransac_homography": lambda: ransac.ransac_homography(pts, pts),
+        "ransac_fundamental": lambda: ransac.ransac_fundamental(pts, pts),
+        "rank_images": lambda: retrieval.rank_images(
+            retrieval.build_index([desc, desc]), desc),
+        "repeatability": lambda: evaluate.repeatability(
+            ell, ell, np.eye(3), (50, 50), desc, desc),
+    }
+
+
+@pytest.mark.parametrize("entry", ["match_descriptors", "knn2",
+                                   "ransac_homography", "ransac_fundamental",
+                                   "rank_images", "repeatability"])
+def test_downstream_without_device_needs_a_gpu(entry):
+    """Numpy input and no device: the GPU, or the device="cpu" error."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry point runs on it")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        _no_device_calls()[entry]()
