@@ -31,14 +31,31 @@ translation (within 0.02 of the CPU extraction's), write_sift_file of
 phase 5's 27,774 features from CUDA tensors (read back; native and
 Python writers byte-equal), and rank_images of images 0-3 over the 16
 images (each first, votes equal to a CPU run), and times knn2 at
-27,774 x 27,774 against its bound, RANSAC and the file write.  Exits
-non-zero on any failed phase; on success the last line of standard
+27,774 x 27,774 against its bound, RANSAC and the file write.  Phase
+2 also holds K2 and K3 with per-image (per-plane) start-pixel limits,
+the padded mode's window, against their plain versions and times them
+beside the unlimited calls.  Phase 8 runs the fleet on the card:
+utils/fleet.extract_fleet over 16 files of four true sizes (seeds
+2000-2015), a 4000x3000 frame (octave 0 padded takes the sparse path
+and K3) and a truncated file, in padded mode; each file against its
+unpadded extract_batch with tests/test_dist.py's padded-mode
+tolerance, the lone images against a CPU fleet run with bench.py's
+gate, a resume that launches nothing, `cli fleet` in a subprocess
+(exit 1 on the truncated file) and `cli retrieve` over the output
+(the query's file first); the 4000x3000 frame's candidates, padded
+against unpadded, are held equal wherever the padded ladder's DoH
+agrees (edge_witness); it logs images/s and the host ms of each
+chunk.  Phase 9 runs geometry on the card against CPU runs:
+incremental_sfm on tests/test_sfm.py's scene (every frame, ATE < 0.15,
+rmse < 2e-3), ba_solve on 50 cameras x 5,000 points and the track form
+on 50 x 10,000 (each converging, within 0.02 px of the CPU, an LM step
+bit-equal on two runs, its ms timed).  Exits non-zero on any failed phase; on success the last line of standard
 output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it holds the per-kernel record: launches in one
-phase-6 call (every kernel runs there) and in phases 4, 5, 6 and 7
+phase-6 call (every kernel runs there) and in phases 4, 5, 6, 7 and 8
 (checked: K1 once a ladder level plus the initial blur, K6 once), max
 abs error against the plain version, the kernel's and the plain
 version's ms (one pair of CUDA events around back-to-back launches, 20
@@ -67,7 +84,8 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "golden")
+TESTS = os.path.join(ROOT, "tests")
+GOLDEN = os.path.join(TESTS, "golden")
 BATCH, HEIGHT, WIDTH = 16, 640, 800
 # phase 6: 12 MP frames, each a mosaic of TILES_Y x TILES_X bench-sized
 # tiles cropped to LARGE_H x LARGE_W, seeds from LARGE_SEED on
@@ -77,6 +95,22 @@ TILES_Y, TILES_X, LARGE_SEED = 5, 6, 1000
 # ((y0, y1), (x0, x1)), so every octave's sampling grid stays aligned and
 # the crop's homography to image 0 is an exact translation
 CROP = ((64, 576), (64, 736))
+# phase 8: a fleet of 16 files at mixed true sizes (width x height), four
+# of each, seeds FLEET_SEED + k (k = 0..15, size k // 4), unused by
+# bench.py and phase 6, in FLEET_ORDER: chunk 1 holds seven images of
+# the 832x640 shape bucket (800x640 and 777x601) and one 640x430 alone,
+# chunk 2 four 1000x750, three 640x430 and one 777x601 alone (the lone
+# ones take extract_batch, the others the grouped path); then phase 6's
+# first mosaic cut to 4000x3000 (octave 0 padded to 4032x3008 takes the
+# sparse path and K3) and a truncated file
+FLEET_SIZES = ((800, 640), (777, 601), (1000, 750), (640, 430))
+FLEET_SEED = 2000
+FLEET_ORDER = (0, 1, 2, 3, 4, 5, 6, 12, 8, 9, 10, 11, 13, 14, 15, 7)
+FLEET_ALONE = (12, 7)       # extract_batch singletons, gated against CPU
+FLEET_BIG = (3000, 4000)
+# phase 9: points of the dense-E and the track-form BA scenes (50
+# cameras, 4 observations a point)
+BA_POINTS = (5000, 10000)
 
 KERNELS = (
     # name, source, TPU kernel it replaces
@@ -244,13 +278,23 @@ def _synth(seed: int) -> np.ndarray:
             .astype(np.float32).mean(axis=-1))
 
 
+def _synth_rgb(width: int, height: int, seed: int) -> np.ndarray:
+    sys.path.insert(0, GOLDEN)
+    import gen_images
+
+    return gen_images.synth_image(width, height, seed=seed)
+
+
 def start_images(ex):
     """Futures of the imagery, made in worker processes: bench.py's 16
-    800x640 images (seeds 0..15, channel-mean gray) and the tiles of
-    phase 6's mosaics (seeds LARGE_SEED on, unused by bench.py)."""
+    800x640 images (seeds 0..15, channel-mean gray), the tiles of
+    phase 6's mosaics (seeds LARGE_SEED on, unused by bench.py) and
+    phase 8's 16 RGB images (seeds FLEET_SEED on)."""
     n_tiles = LARGE_BATCH * TILES_Y * TILES_X
     return ([ex.submit(_synth, s) for s in range(BATCH)],
-            [ex.submit(_synth, LARGE_SEED + k) for k in range(n_tiles)])
+            [ex.submit(_synth, LARGE_SEED + k) for k in range(n_tiles)],
+            [ex.submit(_synth_rgb, *FLEET_SIZES[k // 4], FLEET_SEED + k)
+             for k in range(16)])
 
 
 def mosaic(tiles: np.ndarray) -> np.ndarray:
@@ -263,9 +307,10 @@ def mosaic(tiles: np.ndarray) -> np.ndarray:
 
 
 def gather_images(futures):
-    bench, tiles = futures
+    bench, tiles, fleet = futures
     return (np.stack([f.result() for f in bench]),
-            mosaic(np.stack([f.result() for f in tiles])))
+            mosaic(np.stack([f.result() for f in tiles])),
+            [f.result() for f in fleet])
 
 
 def card_name_and_limit() -> str:
@@ -405,9 +450,54 @@ def phase_kernels(images, cfg, card: str) -> dict:
         nbytes(o.resps[:, :nl + 2], o.blurs[:, 1:nl + 1], ok, cell, tab,
                cand),
         30 * o.resps[:, 1:nl + 1].numel() + 300 * int(cand.sum())))
-    del ok, cell, tab, cand, pok, pcell, ptab, pcand, o
+    del ok, cell, pok, pcell, ptab, pcand
+    rec["detect_walk"].update(walk_limits(o, tab, cand, cfg))
+    del tab, cand, o
     phase_affine(images, cfg, rec, card)
     return rec
+
+
+def walk_limits(o, tab, cand, cfg) -> dict:
+    """K2 with per-image start-pixel limits (padded mode) on the same
+    ladders, each image a different true size: ok / cand / cells equal
+    to the plain version with the same limits, the table bit-equal to
+    the unlimited call's, cand the unlimited one's inside the window.
+    Times with and without limits in turns (none, limits, limits, none),
+    CUDA events around 20 launches each."""
+    import torch
+
+    from hesaff_tpu_torch.ops import cuda_detect
+
+    B, _, H, W = o.resps.shape
+    lim = torch.as_tensor([[H - 7 * b, W - 13 * b] for b in range(B)],
+                          dtype=torch.int32, device=o.resps.device)
+    ok, cell, ltab, lcand = cuda_detect.detect_walk_octave(o.resps, o.blurs,
+                                                           cfg, lim)
+    pok, pcell, _, pcand = cuda_detect.detect_walk_octave_plain(
+        o.resps, o.blurs, cfg, lim)
+    check(bool(torch.equal(ok, pok) and torch.equal(lcand, pcand)),
+          "detect_walk with limits: ok / cand differ from the plain version")
+    check(bool(torch.equal(cell, pcell)),
+          "detect_walk with limits: cells differ from the plain version")
+    check(bool(torch.equal(ltab, tab)),
+          "detect_walk with limits: table differs from the unlimited call's")
+    rr = torch.arange(H, device=lim.device)[:, None]
+    cc = torch.arange(W, device=lim.device)[None, :]
+    win = ((rr < lim[:, 0, None, None] - cfg.border)
+           & (cc < lim[:, 1, None, None] - cfg.border))[:, None]
+    check(bool(torch.equal(lcand, cand & win)),
+          "detect_walk with limits: cand is not the window's")
+    narrowed = int(cand.sum()) - int(lcand.sum())
+    del ok, cell, ltab, lcand, pok, pcell, pcand
+    run = lambda v: timed(lambda: cuda_detect.detect_walk_octave(
+        o.resps, o.blurs, cfg, v))
+    t = [run(None), run(lim), run(lim), run(None)]
+    log(f"phase 2 detect_walk_octave with per-image limits "
+        f"({lim[-1].tolist()} for image {B - 1}): equal to the plain "
+        f"version, table bit-equal, {narrowed} candidates outside the "
+        f"windows; kernel ms in turns none / limits / limits / none: "
+        f"{' / '.join(f'{v:.3f}' for v in t)}")
+    return dict(limits_ms=(t[1] + t[2]) / 2, no_limits_ms=(t[0] + t[3]) / 2)
 
 
 def octave_adapt_args(images, cfg) -> list:
@@ -616,7 +706,7 @@ def phase_maps_kernel(large, cfg, rec) -> None:
     first, pd = pyramid.prepare_first_level(large, cfg)
     o = pyramid.build_octave(first, pd, cfg)
     del first
-    e3, ms, pms, b3, f3, bit_equal = 0.0, 0.0, 0.0, 0, 0, True
+    e3, ms, pms, lms, b3, f3, bit_equal = 0.0, 0.0, 0.0, 0.0, 0, 0, True
     for l in range(1, cfg.num_scales + 1):
         args = (o.resps[:, l - 1], o.resps[:, l], o.resps[:, l + 1])
         maps, nan_flag, edge, mask = cuda_detect.detect_maps(*args, cfg)
@@ -638,12 +728,30 @@ def phase_maps_kernel(large, cfg, rec) -> None:
         ms += device_ms(lambda: cuda_detect.detect_maps(*args, cfg),
                         ("detect_maps_kernel",))
         pms += timed(lambda: cuda_detect.detect_maps_plain(*args, cfg), 3)
+        # per-plane limits (padded mode): the mask the plain version's,
+        # everything else the unlimited call's; device ms with limits
+        B, H, W = args[1].shape
+        lim = torch.as_tensor([[H - 24 * b - 5, W - 32 * b - 3]
+                               for b in range(B)], dtype=torch.int32,
+                              device=args[1].device)
+        lm = cuda_detect.detect_maps(*args, cfg, lim)
+        full = cuda_detect.detect_maps(*args, cfg)
+        plm = cuda_detect.detect_maps_plain(*args, cfg, lim)[3]
+        check(bool(torch.equal(lm[3], plm)) and all(
+            bool(torch.equal(a, b)) for a, b in zip(lm[:3], full[:3])),
+            f"detect_maps with limits, level {l}")
+        del lm, full, plm
+        lms += device_ms(lambda: cuda_detect.detect_maps(*args, cfg, lim),
+                         ("detect_maps_kernel",))
     log(f"phase 2 detect_maps 3 x {tuple(o.resps[:, 1].shape)}: mask/nan/"
         f"edge equal, maps max err where mask {e3:.3g} (rtol 1e-6, atol "
         f"1e-5), all maps bit-equal: {bit_equal}; kernel {ms:.3f} device "
-        f"ms, plain {pms:.3f} ms (3 levels)")
+        f"ms, plain {pms:.3f} ms (3 levels); with per-plane limits: mask "
+        f"equal to the plain version, maps and flags bit-equal to the "
+        f"unlimited call's, {lms:.3f} device ms")
     rec["detect_maps"] = dict(max_abs_err=e3, ms=ms, plain_ms=pms,
-                              all_maps_bit_equal=bit_equal, **bound(b3, f3))
+                              limits_ms=lms, all_maps_bit_equal=bit_equal,
+                              **bound(b3, f3))
 
 
 def _ellipse(f, mr_size):
@@ -1100,6 +1208,421 @@ def phase_after(images_np, dense, dense_cpu0, cfg, dev, card: str) -> dict:
     return launches
 
 
+def _features_npz(path):
+    from hesaff_tpu_torch import Features
+
+    d = np.load(path)
+    return Features(**{k: d[k] for k in Features._fields})
+
+
+def _padded_agree(ref, got, what: str, dev) -> float:
+    """tests/test_dist.py's padded-mode tolerance, got (padded run)
+    against ref (unpadded): count within max(2, 3%), >= 97% of ref's
+    keypoints within 0.25 px of one of got's, each of those with s
+    within 5% (+ 1e-3).  Returns the matched share."""
+    import torch
+
+    check(abs(got.n - ref.n) <= max(2, 0.03 * ref.n),
+          f"{what}: count padded {got.n} unpadded {ref.n}")
+    if ref.n == 0:
+        return 1.0
+    a = torch.as_tensor(np.stack([ref.x, ref.y], 1), device=dev)
+    b = torch.as_tensor(np.stack([got.x, got.y], 1), device=dev)
+    d, j = [], []
+    for s0 in range(0, a.shape[0], 4096):
+        dist = torch.cdist(a[s0:s0 + 4096], b,
+                           compute_mode="donot_use_mm_for_euclid_dist")
+        v, i = dist.min(1)
+        d.append(v)
+        j.append(i)
+    d = torch.cat(d).cpu().numpy()
+    j = torch.cat(j).cpu().numpy()
+    m = d < 0.25
+    s_bad = int((np.abs(got.s[j[m]] - ref.s[m])
+                 >= 0.05 * ref.s[m] + 1e-3).sum())
+    check(m.sum() >= 0.97 * ref.n,
+          f"{what}: matched {int(m.sum())} of {ref.n} < 97%")
+    check(s_bad == 0, f"{what}: {s_bad} matched keypoints with s off > 5%")
+    return float(m.mean())
+
+
+def edge_witness(img, padded, hw, cfg, dev, stats_p, stats_u) -> str:
+    """Where the padded run's candidates may differ from the unpadded
+    run's, and a check that they differ nowhere else.
+
+    Rebuilds both ladders octave by octave (the path's own K1) and takes
+    each detection level's candidate mask from the path's own kernel (K3
+    on octaves of 2^23 px or more, K2 below), the padded one with its
+    true size, each held bit for bit against candidate_mask (the plain
+    version, whose window tests/test_torch_padded.py holds against the
+    JAX package's) on the same ladder.  The padded ladder blurs its padding where the unpadded
+    one clamps at the true edge, so the DoH of the two differs near that
+    edge.  Checks, per octave and level: the padded mask is empty outside
+    the true window; the two masks are equal at every pixel whose 3x3x3
+    DoH neighbourhood is bit-equal in both ladders; those pixels lie
+    within 2 * (the ladder's tap radii) + 4 px of the true edge (the
+    blurs' reach, carried to the next octave halved, plus the DoH and
+    NMS stencils).  Over the octaves: each run's masks sum to its
+    num_candidates, and the candidate overflow of the two runs differs by
+    no more than the candidates (of either run) within a walk's reach
+    (5 cells) of such a pixel or of a differing blur, where the walk,
+    the level compaction and the dedup may go another way.  Returns the
+    log line with the counts.
+    """
+    import torch
+    import torch.nn.functional as F
+
+    from hesaff_tpu_torch.batch import as_valid_hw
+    from hesaff_tpu_torch.detect import SPARSE_PATH_PIXELS, candidate_mask
+    from hesaff_tpu_torch.ops import cuda_detect
+    from hesaff_tpu_torch.pyramid import (build_octave, ladder_taps,
+                                          prepare_first_level)
+
+    def differs(a, b):
+        return (a != b) & ~(a.isnan() & b.isnan())
+
+    def dilate(m, r):
+        return F.max_pool2d(m.float()[:, None], 2 * r + 1, 1,
+                            r)[:, 0] > 0
+
+    def masks(o, vhw, what):
+        levels = range(1, cfg.num_scales + 1)
+        r = o.resps
+        if r.shape[-2] * r.shape[-1] >= SPARSE_PATH_PIXELS:
+            got = torch.stack([cuda_detect.detect_maps(
+                r[:, l - 1], r[:, l], r[:, l + 1], cfg, vhw)[3]
+                for l in levels], 1)
+        else:
+            got = cuda_detect.detect_walk_octave(r, o.blurs, cfg, vhw)[3]
+        ref = torch.stack([candidate_mask(r[:, l - 1], r[:, l], r[:, l + 1],
+                                          cfg, vhw) for l in levels], 1)
+        check(torch.equal(got, ref), f"edge witness octave {octave}: the "
+              f"kernel's {what} candidates differ from candidate_mask's")
+        return got
+
+    t = lambda a: torch.as_tensor(a[None], dtype=torch.float32, device=dev)
+    cur_u, pd = prepare_first_level(t(img), cfg)
+    cur_p, _ = prepare_first_level(t(padded), cfg)
+    vhw = as_valid_hw([hw], dev) * (2 if cfg.upscale_input else 1)
+    b = cfg.border
+    reach_px = 2 * sum(len(k) // 2 for k in ladder_taps(cfg)) + 4
+    n_p = n_u = zone_px = zone_p = zone_u = near = 0
+    deepest = -1
+    octave = 0
+    fits = lambda x: (x.shape[-2] > cfg.min_octave_size
+                      and x.shape[-1] > cfg.min_octave_size)
+    while fits(cur_p) and fits(cur_u):
+        ou, op = build_octave(cur_u, pd, cfg), build_octave(cur_p, pd, cfg)
+        H, W = ou.resps.shape[-2:]
+        h, w = (int(v) for v in vhw[0])
+        check((H, W) == (h, w), f"edge witness octave {octave}: unpadded "
+              f"{H}x{W}, true size {h}x{w}")
+        mu, mp = masks(ou, None, "unpadded"), masks(op, vhw, "padded")
+        rows = torch.arange(mp.shape[-2], device=dev)[:, None]
+        cols = torch.arange(mp.shape[-1], device=dev)[None, :]
+        outside = (rows >= h - b) | (cols >= w - b)
+        check(not bool((mp & outside).any()),
+              f"edge witness octave {octave}: padded candidates outside "
+              "the true window")
+        n_p += int(mp.sum())
+        n_u += int(mu.sum())
+        rd = differs(op.resps[..., :H, :W], ou.resps)
+        bd = differs(op.blurs[..., :H, :W], ou.blurs)
+        for l in range(1, cfg.num_scales + 1):
+            nd = dilate(rd[:, l - 1] | rd[:, l] | rd[:, l + 1], 1)
+            lp, lu = mp[:, l - 1, :H, :W], mu[:, l - 1]
+            bad = int((differs(lp, lu) & ~nd).sum())
+            check(bad == 0, f"edge witness octave {octave} level {l}: "
+                  f"{bad} candidates differ where the DoH agrees")
+            r, c = torch.nonzero(nd[0], as_tuple=True)
+            if r.numel():
+                deepest = max(deepest, int(torch.minimum(
+                    h - 1 - r, w - 1 - c).max()))
+            zone_px += int(nd.sum())
+            zone_p += int((lp & nd).sum())
+            zone_u += int((lu & nd).sum())
+            walk = dilate(nd | dilate(bd[:, l], 1), 5)
+            near += int((lp & walk).sum()) + int((lu & walk).sum())
+        cur_u, cur_p = ou.next_first, op.next_first
+        vhw = vhw // 2
+        pd *= 2.0
+        octave += 1
+        del ou, op, mu, mp, rd, bd
+    check(not fits(cur_p) and not fits(cur_u),
+          f"edge witness: the octave counts differ after octave {octave}")
+    check(deepest <= reach_px, f"edge witness: the DoH differs "
+          f"{deepest} px inside the true edge, past {reach_px}")
+    check((n_p, n_u) == (stats_p.num_candidates, stats_u.num_candidates),
+          f"edge witness: masks sum to {n_p} / {n_u}, the runs counted "
+          f"{stats_p.num_candidates} / {stats_u.num_candidates}")
+    gap = abs(stats_p.candidate_overflow - stats_u.candidate_overflow)
+    check(gap <= near, f"edge witness: candidate overflow differs by "
+          f"{gap}, more than the {near} candidates within reach")
+    return (f"DoH differs at {zone_px} px over {octave} octaves x "
+            f"{cfg.num_scales} levels, at most {deepest} px inside the true "
+            f"edge (bound {reach_px}); candidates there padded {zone_p}, "
+            f"unpadded {zone_u}; equal elsewhere; candidates within a "
+            f"walk's reach {near}, candidate overflow gap {gap}")
+
+
+def _write_pgm(path: str, gray: np.ndarray) -> None:
+    h, w = gray.shape
+    with open(path, "wb") as f:
+        f.write(b"P5\n%d %d\n255\n" % (w, h))
+        f.write(gray.tobytes())
+
+
+def phase_fleet(fleet_rgb, large_np, cfg, dev, card: str) -> dict:
+    """Phase 8, the fleet on the card: utils/fleet.extract_fleet over
+    16 files of four true sizes, a 4000x3000 frame and a truncated file
+    (batch_size 8, bench_config).  Returns its launches.  Checks: every
+    kernel launched; the truncated file alone in `failed`; each file's
+    .npz against its unpadded extract_batch on the card with the
+    padded-mode tolerance; the 4000x3000 frame padded and unpadded,
+    their candidates equal except where the padded ladder's DoH
+    differs next to the true edge (edge_witness); the two lone images
+    against a CPU fleet run with bench.py's gate; a resume that launches no
+    kernel; `cli fleet` in a subprocess exiting 1 on the truncated
+    file; `cli retrieve` over the output ranking the query's own file
+    first.  Logs images/s and the host ms of each chunk's submit and
+    drain."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch
+
+    from hesaff_tpu_torch import cli, extract_batch
+    from hesaff_tpu_torch.sift_io import load_image_gray
+    from hesaff_tpu_torch.utils import fleet
+
+    sys.path.insert(0, GOLDEN)
+    import gen_images
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    paths = []
+    for k, rgb in enumerate(fleet_rgb):
+        h, w = rgb.shape[:2]
+        paths.append(os.path.join(img_dir, f"f{k:02d}_{w}x{h}.ppm"))
+        gen_images.write_ppm(paths[-1], rgb)
+    big = os.path.join(img_dir, "big_4000x3000.pgm")
+    rows, cols = FLEET_BIG
+    _write_pgm(big, np.clip(np.rint(large_np[0, :rows, :cols]), 0, 255)
+               .astype(np.uint8))
+    bad = os.path.join(img_dir, "truncated.ppm")
+    with open(bad, "wb") as f:
+        f.write(b"P6\n10 10\n255\nshort")
+    order = [paths[k] for k in FLEET_ORDER] + [big, bad]
+    out = os.path.join(root, "out")
+    base = lambda p: os.path.splitext(os.path.basename(p))[0]
+
+    # host ms of each chunk's submit (phase A and the groups' launches,
+    # with phase A's host syncs) and drain (copy out, or the overflow
+    # rerun), through the module's own functions
+    spans = []
+    submit, drain = fleet._submit_chunk, fleet._drain_chunk
+
+    def timed_submit(imgs, *a, **k):
+        t0 = time.perf_counter()
+        tok = submit(imgs, *a, **k)
+        spans.append((f"submit {imgs.shape}", time.perf_counter() - t0))
+        return tok
+
+    def timed_drain(tok, *a, **k):
+        # a grouped chunk whose capacities overflowed reruns through
+        # extract_batch inside the drain
+        over = int(tok[1].overflow) if tok[0] == "grouped" else 0
+        t0 = time.perf_counter()
+        feats = drain(tok, *a, **k)
+        spans.append((f"drain {tok[0]}" + (f" (overflow {over}: rerun)"
+                                           if over else ""),
+                      time.perf_counter() - t0))
+        return feats
+
+    fleet._submit_chunk, fleet._drain_chunk = timed_submit, timed_drain
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        cursor = fleet.extract_fleet(order, out, cfg, batch_size=8, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        fleet._submit_chunk, fleet._drain_chunk = submit, drain
+    done = len(order) - 1
+    check(sorted(cursor["done"]) == sorted(order[:-1]),
+          f"fleet: done {len(cursor['done'])} of {done}")
+    check(list(cursor["failed"]) == [bad],
+          f"fleet: failed {list(cursor['failed'])}, not the truncated file")
+    for k, v in launches.items():
+        check(v > 0, f"fleet: kernel {k} never launched")
+    log(f"phase 8 fleet of {done} images + 1 truncated on {card}: "
+        f"{done / wall:.2f} images/s ({wall * 1e3:.1f} ms wall, batch_size "
+        f"8, extract_batch for the lone images); failed "
+        f"{[base(p) for p in cursor['failed']]}; launches {launches}; host "
+        f"ms: " + "; ".join(f"{n} {v * 1e3:.1f}" for n, v in spans))
+
+    # each file against its unpadded extract_batch on the card
+    shares = []
+    for size in range(len(FLEET_SIZES)):
+        ks = [k for k in range(16) if k // 4 == size]
+        imgs = np.stack([load_image_gray(paths[k]) for k in ks])
+        ref = extract_batch(imgs, cfg, device=dev)
+        for k, r in zip(ks, ref):
+            got = _features_npz(os.path.join(out, base(paths[k]) + ".npz"))
+            shares.append(_padded_agree(r, got, f"fleet {base(paths[k])}",
+                                        dev))
+    big_img = load_image_gray(big)
+    padded, hw = fleet.pad_to_bucket(big_img)
+    ru, su = extract_batch(big_img[None], cfg, return_stats=True, device=dev)
+    rp, sp = extract_batch(padded[None], cfg, return_stats=True,
+                           valid_hw=np.asarray([hw], np.int32), device=dev)
+    got = _features_npz(os.path.join(out, base(big) + ".npz"))
+    shares.append(_padded_agree(ru[0], got, "fleet 4000x3000", dev))
+    check(got.n == rp[0].n, f"fleet 4000x3000: file {got.n}, padded run "
+          f"{rp[0].n}")
+    # the funnel: padded and unpadded candidates differ only where the
+    # padded ladder's DoH differs, next to the true edge
+    witness = edge_witness(big_img, padded, hw, cfg, dev, sp, su)
+    torch.cuda.empty_cache()
+    log(f"  each file against its unpadded extract_batch: matched share "
+        f"min {min(shares):.4f}, mean {np.mean(shares):.4f} (>= 0.97); "
+        f"4000x3000 padded to {padded.shape}: {got.n} features, candidates "
+        f"{sp.num_candidates} (unpadded {su.num_candidates}), candidate "
+        f"overflow {sp.candidate_overflow} ({su.candidate_overflow}); "
+        f"edge witness: {witness}")
+
+    # the lone images against a CPU fleet run of the same files
+    cpu_dir = os.path.join(root, "out_cpu")
+    t0 = time.perf_counter()
+    alone = [paths[k] for k in FLEET_ALONE]
+    cc = fleet.extract_fleet(alone, cpu_dir, cfg, batch_size=8, log=log,
+                             device="cpu")
+    check(sorted(cc["done"]) == sorted(alone), "fleet: CPU run incomplete")
+    log(f"  CPU fleet run of {[base(p) for p in alone]}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for p in alone:
+        _gate(_features_npz(os.path.join(out, base(p) + ".npz")),
+              _features_npz(os.path.join(cpu_dir, base(p) + ".npz")),
+              f"phase 8 {base(p)}")
+
+    # resume: nothing to do, no kernel launched
+    reset_counts()
+    again = fleet.extract_fleet(order, out, cfg, batch_size=8, log=log)
+    relaunch = read_counts()
+    check(not any(relaunch.values()), f"fleet resume launched {relaunch}")
+    check(sorted(again["done"]) == sorted(cursor["done"])
+          and again["failed"] == cursor["failed"],
+          "fleet resume changed the cursor")
+
+    # cli fleet in a subprocess: exits 1 on the truncated file
+    cli_out = os.path.join(root, "out_cli")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "hesaff_tpu_torch.cli", "fleet", paths[13],
+         paths[14], bad, "--out-dir", cli_out], capture_output=True,
+        text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    last = (r.stdout.strip().splitlines() or [""])[-1]
+    check(r.returncode == 1 and last == "done=2 failed=1",
+          f"cli fleet: rc {r.returncode}, {last!r}, {r.stderr[-500:]}")
+    cli_s = time.perf_counter() - t0
+
+    # cli retrieve over the fleet's output: the query's own file first
+    q = paths[2]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["retrieve", q, "--db", out])
+    top = buf.getvalue().split()
+    check(rc == 0 and top[:1] == [base(q)],
+          f"cli retrieve: rc {rc}, top {top[:2]}, not {base(q)}")
+    log(f"  resume: launches {relaunch}, cursor unchanged; cli fleet "
+        f"(subprocess, 2 images + the truncated file): rc "
+        f"{r.returncode}, {last!r}, {cli_s:.1f} s; cli retrieve "
+        f"{base(q)} over {done} files: top {top[:2]}")
+    return launches
+
+
+def phase_geometry(dev, card: str) -> None:
+    """Phase 9, geometry on the card, each held against a CPU run:
+    incremental_sfm on tests/test_sfm.py's scene (every frame registered,
+    ATE < 0.15, rmse < 2e-3, the same frames as the CPU's); ba_solve
+    (dense E) on 50 cameras and 5,000 points; the track form past 30,000
+    observations (test_geom.py's 50 x 10,000 scene).  Each BA converges
+    (rmse from > 1.5 to < 0.5 px, within 0.02 of the CPU's) and one LM
+    step gives the same bits twice.  LM-step ms from CUDA events.  No
+    kernel of the port runs here."""
+    import torch
+
+    from hesaff_tpu_torch import sfm
+    from hesaff_tpu_torch.geom import ba
+
+    sys.path.insert(0, TESTS)
+    from _torch_scenes import ba_line_scene, sfm_scene
+
+    reset_counts()
+    tracks, K, rv_gt, tv_gt = sfm_scene()
+    recs = {}
+    for d in (dev, "cpu"):
+        t0 = time.perf_counter()
+        rec = sfm.incremental_sfm(tracks, K, ba_every=3, device=d)
+        wall = time.perf_counter() - t0
+        ate = sfm.absolute_trajectory_error(rec.cam_rvec, rec.cam_tvec,
+                                            rv_gt, tv_gt)
+        recs[str(d)] = (rec, ate, wall)
+        check(len(rec.cam_rvec) == len(rv_gt),
+              f"sfm on {d}: {len(rec.cam_rvec)} of {len(rv_gt)} frames")
+        check(ate < 0.15 and rec.rmse < 2e-3,
+              f"sfm on {d}: ATE {ate}, rmse {rec.rmse}")
+    (g, ate_g, wg), (c, ate_c, wc) = recs[str(dev)], recs["cpu"]
+    check(np.array_equal(g.frame_ids, c.frame_ids),
+          f"sfm: frames {g.frame_ids} on the card, {c.frame_ids} on the CPU")
+    log(f"phase 9 incremental_sfm, {len(tracks)} tracks over "
+        f"{len(rv_gt)} frames on {card}: {len(g.cam_rvec)} registered, "
+        f"{len(g.points)} points, ATE {ate_g:.5f} (< 0.15), rmse "
+        f"{g.rmse:.3e} (< 2e-3), {wg:.2f} s; CPU run: {len(c.points)} "
+        f"points, ATE {ate_c:.5f}, rmse {c.rmse:.3e}, {wc:.2f} s")
+
+    for label, P, solve in (
+            ("ba_solve (dense E)", BA_POINTS[0], ba.ba_solve),
+            ("ba_solve_sharded (tracks, one device)", BA_POINTS[1],
+             ba.ba_solve_sharded)):
+        p, q = ba_line_scene(P, dev), ba_line_scene(P, "cpu")
+        err0 = float(ba.reprojection_rmse(p))
+        if solve is ba.ba_solve_sharded:
+            tr = ba.problem_to_tracks(p)[0]
+            segs = ba.tracks_segments(tr)
+            one = lambda: ba._tracks_lm_step(tr, 1e-3, True, segs)
+        else:
+            segs = ba.problem_segments(p)
+            one = lambda: ba._lm_step(p, 1e-3, True, segs)
+        a, b = one(), one()
+        same = all(bool(torch.equal(getattr(a[0], k), getattr(b[0], k)))
+                   for k in ("cam_rvec", "cam_tvec", "points"))
+        check(same and bool(torch.equal(a[1], b[1])),
+              f"{label}: an LM step differs between two runs")
+        step_ms = timed(one, 5)
+        t0 = time.perf_counter()
+        _, err_g = solve(p, iterations=8)
+        wall_g = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, err_c = solve(q, iterations=8)
+        wall_c = time.perf_counter() - t0
+        check(err0 > 1.5 and err_g < 0.5 and abs(err_g - err_c) < 0.02,
+              f"{label}: rmse {err0} -> {err_g} (CPU {err_c})")
+        log(f"  {label}, 50 cameras, {P} points, {p.cam_idx.numel()} "
+            f"observations on {card}: rmse {err0:.4f} -> {err_g:.5f} px in "
+            f"8 LM iterations ({wall_g:.2f} s), CPU {err_c:.5f} "
+            f"({wall_c:.2f} s); one LM step {step_ms:.3f} ms (CUDA events, "
+            f"5 steps after a warm-up), bit-equal on two runs: {same}")
+    launches = read_counts()
+    check(not any(launches.values()), f"geometry launched {launches}")
+
+
 _SPANS = ("phase A", "group ", "direct branch", "SIFT")
 
 
@@ -1187,7 +1710,7 @@ def main() -> int:
         futures = start_images(ex)            # made while nvcc builds
         try:
             phase_build()
-            images_np, large_np = gather_images(futures)
+            images_np, large_np, fleet_rgb = gather_images(futures)
         except BaseException:
             ex.shutdown(cancel_futures=True)
             raise
@@ -1199,19 +1722,36 @@ def main() -> int:
         f"({LARGE_BATCH * TILES_Y * TILES_X} tiles) in "
         f"{time.perf_counter() - t0:.1f} s with the build")
     cfg = bench_config()
+    walls = {}
+
+    def run(phase: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[phase] = time.perf_counter() - t0
+        log(f"  phase {phase} wall {walls[phase]:.1f} s")
+        return out
+
     images = torch.as_tensor(images_np, device=dev)
-    rec = phase_kernels(images, cfg, card)
-    phase_group_kernels(images, cfg, rec)
+    rec = run("2a", phase_kernels, images, cfg, card)
+    run("2b", phase_group_kernels, images, cfg, rec)
     del images
     large = torch.as_tensor(large_np, device=dev)
-    phase_maps_kernel(large, cfg, rec)
+    run("2c", phase_maps_kernel, large, cfg, rec)
     del large
     torch.cuda.empty_cache()
-    phase_golden(dev)
-    launches = {"4": phase_batch(images_np, cfg, dev)}
-    launches["5"], dense, dense_cpu0 = phase_grouped(images_np, cfg, dev)
-    launches["6"] = phase_large(large_np, cfg, dev)
-    launches["7"] = phase_after(images_np, dense, dense_cpu0, cfg, dev, card)
+    run("3", phase_golden, dev)
+    launches = {"4": run("4", phase_batch, images_np, cfg, dev)}
+    launches["5"], dense, dense_cpu0 = run("5", phase_grouped, images_np,
+                                           cfg, dev)
+    launches["6"] = run("6", phase_large, large_np, cfg, dev)
+    launches["7"] = run("7", phase_after, images_np, dense, dense_cpu0, cfg,
+                        dev, card)
+    del dense, dense_cpu0
+    launches["8"] = run("8", phase_fleet, fleet_rgb, large_np, cfg, dev,
+                        card)
+    run("9", phase_geometry, dev, card)
+    log("  phase walls (s): "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed")
         return 1

@@ -19,7 +19,12 @@ Public API
     ransac_homography, ransac_fundamental — batched-hypothesis RANSAC
     evaluate.repeatability, retrieval.rank_images — Oxford protocol,
                      kNN-vote retrieval
-    cli — ``python -m hesaff_tpu_torch.cli extract|match|eval|retrieve``
+    utils.fleet.extract_fleet — checkpointed extraction of a file list
+                     in padded (valid_hw) mode, one .npz per image
+    geom.ba.ba_solve, geom.posegraph.pose_graph_solve, sfm.incremental_sfm
+                     — Schur bundle adjustment, pose graph, small-scene SfM
+    cli — ``python -m hesaff_tpu_torch.cli
+                     extract|match|eval|retrieve|fleet|sfm``
 
 Entry points run on the GPU unless given a CPU tensor or
 device="cpu", for images of any size (octaves of 2^23 px or more take

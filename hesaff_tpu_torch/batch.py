@@ -1,6 +1,11 @@
 """Batched multi-image extraction: the port's main path.
 
-Port of ``hesaff_tpu/batch.py`` without padded (valid_hw) mode.
+Port of ``hesaff_tpu/batch.py``, padded (valid_hw) mode included: a
+batch edge-padded to a shape bucket (utils/fleet.pad_to_bucket) carries
+each image's true size, which the detection window and the patch
+corner check use, so padding adds no keypoints.  Near-edge blur and
+affine windows read the replicated padding where the unpadded run reads
+its replicate border or zeros: the documented tolerance of the mode.
 
 Phase A (device): for every octave, the blur + DoH ladder, the
 detection walk (dense, or sparse for octaves of 2^23 px or more), and
@@ -32,15 +37,16 @@ from hesaff_tpu_torch.pyramid import (build_octave, level_sigmas,
 
 
 def _detect_one_octave(resps, blurs, sig, pd: float, cfg: HesaffConfig,
-                       octave: int = 0) -> dict:
+                       octave: int = 0, valid_hw=None) -> dict:
     """Per-image detection of one octave through detect_level, the
     reference form of the oracle tests (JAX's batch._detect_one_octave).
 
-    resps, blurs: (L, H, W).  Returns the compacted keypoint dict of
-    (affine capacity,) fields, overflow and n_cand.
+    resps, blurs: (L, H, W); valid_hw: None or the (2,) true size.
+    Returns the compacted keypoint dict of (affine capacity,) fields,
+    overflow and n_cand.
     """
     comp = detect_octave_sparse(resps[None], blurs[None], sig, pd, cfg,
-                                octave)
+                                octave, as_valid_hw(valid_hw, resps.device))
     return {k: v[0] for k, v in comp.items()}
 
 
@@ -64,8 +70,22 @@ def octave_affine_inputs(comp: dict, blurs: torch.Tensor, pd: float,
             safe("y", (H // 2) * pd), safe("s", 2.0 * pd), pd, cfg, ok)
 
 
-def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig) -> dict:
+def as_valid_hw(valid_hw, device):
+    """valid_hw as the kernels take it: None, or (B, 2) contiguous
+    int32 true sizes on `device`."""
+    if valid_hw is None:
+        return None
+    return torch.as_tensor(valid_hw, dtype=torch.int32,
+                           device=device).reshape(-1, 2).contiguous()
+
+
+def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig,
+                        valid_hw=None) -> dict:
     """Phase A over an image batch: (B, H, W) -> dict of (B, N_cap).
+
+    valid_hw: None, or (B, 2) int32 true sizes of edge-padded images
+    (doubled under upscale_input, floor-halved after each octave as the
+    pyramid halves).
 
     Fields: ok (detected and adapted), det_ok (detected), x, y, s,
     response, type, a11..a22 (rectified frame), (B, octaves) overflow
@@ -76,6 +96,9 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig) -> dict:
     B = images.shape[0]
     sig = level_sigmas(cfg)
     cur, pd = prepare_first_level(images, cfg)
+    vhw = as_valid_hw(valid_hw, images.device)
+    if vhw is not None and cfg.upscale_input:
+        vhw = vhw * 2
     fields = defaultdict(list)
     next_firsts = []
     octave = 0
@@ -83,7 +106,10 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig) -> dict:
            and cur.shape[-1] > cfg.min_octave_size):
         o = build_octave(cur, pd, cfg)
         comp = detect_octave_batch(o.resps, o.blurs, sig, pd, cfg,
-                                   octave=octave)
+                                   octave=octave, valid_hw=vhw)
+        if vhw is not None:
+            # the pyramid floor-halves the true size too
+            vhw = vhw // 2
         ar = adapt_flat(*octave_affine_inputs(comp, o.blurs, pd, cfg))
         r11, r12, r21, r22 = rectify_up_is_up(ar.u11, ar.u12, ar.u21,
                                               ar.u22)
@@ -122,7 +148,7 @@ def _pad_to(n: int, minimum: int = 64) -> int:
 
 
 def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
-                  return_stats: bool = False, device=None):
+                  return_stats: bool = False, valid_hw=None, device=None):
     """Extract features from a batch of same-size images.
 
     images: (B, H, W) float32 array or tensor; device: where to run
@@ -130,12 +156,20 @@ def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
     "cpu" to run on the CPU).  Returns a list of B Features (and an
     ExtractStats for the batch when return_stats is set).  On a GPU the
     patch and SIFT stages run the fused patch and SIFT kernels.
+
+    valid_hw: optional (B, 2) int32 true sizes when the batch is
+    edge-padded to a shape bucket (utils/fleet.pad_to_bucket): the
+    detection window and the patch corner check use them, so padding
+    adds no keypoints (near-edge affine windows may read replicated
+    padding instead of the unpadded run's zeros: the documented
+    tolerance of the mode).
     """
     images = torch.as_tensor(images, dtype=torch.float32,
                              device=resolve_device(images, device))
     images = images.contiguous()
     B = images.shape[0]
-    out = detect_affine_batch(images, cfg)
+    valid_hw = as_valid_hw(valid_hw, images.device)
+    out = detect_affine_batch(images, cfg, valid_hw)
     out.pop("next_firsts")
     out = {k: v.cpu().numpy() for k, v in out.items()}
 
@@ -177,6 +211,7 @@ def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
                   ("x", "y", "s", "a11", "a12", "a21", "a22")),
                 cfg, active=torch.arange(npad, device=dev) < len(idx),
                 prev_bucket=BUCKET_SIZES[bi - 1] if bi else 0,
+                valid_hw=valid_hw,
             )
             patches[torch.as_tensor(idx, device=dev)] = pk[: len(idx)]
             patch_ok[idx] = pok[: len(idx)].cpu().numpy()

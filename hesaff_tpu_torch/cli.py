@@ -4,9 +4,9 @@
 reference binary's contract: writes ``<image>.hesaff.sift`` and prints
 the detection summary line.  The subcommands, arguments, defaults,
 output lines and exit codes are the JAX package's ``hesaff_tpu.cli``
-ones for ``extract``, ``match``, ``eval`` and ``retrieve``; where that
-CLI takes ``--platform``, this one takes ``--device``: the GPU by
-default, ``cpu`` on request.
+ones for ``extract``, ``match``, ``eval``, ``retrieve``, ``sfm`` and
+``fleet``; where that CLI takes ``--platform``, this one takes
+``--device``: the GPU by default, ``cpu`` on request.
 """
 
 from __future__ import annotations
@@ -155,6 +155,87 @@ def _cmd_retrieve(args) -> int:
     return 0
 
 
+def _cmd_fleet(args) -> int:
+    """Checkpointed extraction over an image list (.npz per image);
+    exits 1 when any image failed."""
+    from hesaff_tpu_torch.utils.fleet import extract_fleet
+
+    cursor = extract_fleet(args.images, args.out_dir,
+                           batch_size=args.batch_size, device=args.device)
+    print(f"done={len(cursor['done'])} failed={len(cursor['failed'])}")
+    return 0 if not cursor["failed"] else 1
+
+
+def _cmd_sfm(args) -> int:
+    """Incremental SfM over an ordered frame sequence: extract, pairwise
+    match and RANSAC verify, union-find tracks, incremental registration
+    and Schur BA, then a poses / points npz and a reprojection report."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from hesaff_tpu_torch.config import HesaffConfig
+    from hesaff_tpu_torch.match import match_descriptors
+    from hesaff_tpu_torch.pipeline import extract
+    from hesaff_tpu_torch.ransac import ransac_fundamental
+    from hesaff_tpu_torch.sfm import build_tracks, incremental_sfm
+    from hesaff_tpu_torch.sift_io import load_image_gray
+
+    paths = list(args.frames)
+    if len(paths) == 1 and os.path.isdir(paths[0]):
+        exts = ("*.png", "*.ppm", "*.pgm", "*.jpg", "*.jpeg", "*.pnm")
+        paths = sorted(p for e in exts
+                       for p in glob.glob(os.path.join(paths[0], e)))
+    if len(paths) < 2:
+        print("sfm needs >= 2 frames (got "
+              f"{len(paths)})", file=sys.stderr)
+        return 1
+
+    cfg = HesaffConfig()
+    feats, shape0 = [], None
+    for p in paths:
+        img = load_image_gray(p)
+        shape0 = shape0 or img.shape
+        feats.append(extract(img, cfg, device=args.device))
+    H0, W0 = shape0
+    focal = args.focal or 1.2 * max(H0, W0)
+    K = np.array([[focal, 0.0, W0 / 2.0],
+                  [0.0, focal, H0 / 2.0],
+                  [0.0, 0.0, 1.0]])
+
+    kps = [np.stack([f.x, f.y], 1) for f in feats]
+    matches = {}
+    for i in range(len(paths)):
+        for j in range(i + 1, min(len(paths), i + 1 + args.window)):
+            i1, i2 = match_descriptors(feats[i].desc, feats[j].desc,
+                                       ratio=args.ratio, device=args.device)
+            if len(i1) < 16:
+                continue
+            res = ransac_fundamental(kps[i][i1], kps[j][i2],
+                                     device=args.device)
+            inl = res.inliers.cpu().numpy()
+            if inl.sum() < 16:
+                continue
+            matches[(i, j)] = (i1[inl], i2[inl])
+    if (0, 1) not in matches:
+        print("frames 0 and 1 share too few verified matches to seed",
+              file=sys.stderr)
+        return 1
+    tracks = build_tracks(kps, matches)
+    rec = incremental_sfm(tracks, K, ba_every=args.ba_every,
+                          device=args.device)
+    out = args.output or "recon.npz"
+    np.savez(out, cam_rvec=rec.cam_rvec, cam_tvec=rec.cam_tvec,
+             points=rec.points, track_ids=rec.track_ids,
+             frame_ids=rec.frame_ids, rmse=rec.rmse, K=K,
+             frames=np.array(paths))
+    print(f"frames={len(paths)} registered={len(rec.cam_rvec)} "
+          f"points={len(rec.points)} tracks={len(tracks)} "
+          f"reproj_rmse={rec.rmse:.5f} -> {out}")
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="hesaff_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -202,6 +283,30 @@ def main(argv=None) -> int:
     pr.add_argument("--ratio", type=float, default=0.9)
     pr.add_argument("--device", default=None, help=_DEVICE_HELP)
     pr.set_defaults(fn=_cmd_retrieve)
+
+    ps = sub.add_parser("sfm",
+                        help="incremental SfM over an ordered frame "
+                             "sequence -> poses/points npz")
+    ps.add_argument("frames", nargs="+",
+                    help="frame images in order, or one directory")
+    ps.add_argument("-o", "--output", default=None,
+                    help="output npz (default recon.npz)")
+    ps.add_argument("--focal", type=float, default=None,
+                    help="focal length in px (default 1.2*max(H,W))")
+    ps.add_argument("--ratio", type=float, default=0.8)
+    ps.add_argument("--window", type=int, default=5,
+                    help="match frame i with i+1..i+window")
+    ps.add_argument("--ba-every", type=int, default=5)
+    ps.add_argument("--device", default=None, help=_DEVICE_HELP)
+    ps.set_defaults(fn=_cmd_sfm)
+
+    pf = sub.add_parser("fleet",
+                        help="checkpointed batch extraction over images")
+    pf.add_argument("images", nargs="+")
+    pf.add_argument("--out-dir", required=True)
+    pf.add_argument("--batch-size", type=int, default=8)
+    pf.add_argument("--device", default=None, help=_DEVICE_HELP)
+    pf.set_defaults(fn=_cmd_fleet)
 
     args = p.parse_args(argv)
     return args.fn(args)

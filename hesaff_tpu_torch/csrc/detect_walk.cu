@@ -78,6 +78,15 @@
 // edge_bad read at the start pixel, ok = cand & keep & ~edge_bad(start)
 // & stop_ok(final).  Built with --fmad=false so the solve rounds as the
 // plain PyTorch version does.
+//
+// Padded mode (hesaff_tpu/detect.py:603-623, pallas_detect.py:333): when
+// a batch is edge-padded to a shape bucket, both entries take an optional
+// device array of each image's (plane's) true rows and columns and narrow
+// the start-pixel window `keep` to it, where the TPU path ANDed a
+// (B, H, W) window onto ok and cand after the kernel.  A start pixel's
+// candidate flag carries the window into ok, so nothing else changes:
+// the neighbourhoods, the solve and the walk's safety border keep the
+// padded dimensions, as in the JAX package.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -295,8 +304,9 @@ __global__ void __launch_bounds__(WTHREADS) detect_walk_kernel(
     const float* __restrict__ resps, const float* __restrict__ blurs,
     long long r_sb, long long r_sl, long long b_sb, long long b_sl,
     uint8_t* __restrict__ ok_out, int32_t* __restrict__ cell_out,
-    float* __restrict__ tab_out, uint8_t* __restrict__ cand_out, int nl,
-    int H, int W, int vec, Params p) {
+    float* __restrict__ tab_out, uint8_t* __restrict__ cand_out,
+    const int32_t* __restrict__ vhw, int nl, int H, int W, int vec,
+    Params p) {
   extern __shared__ __align__(16) float sm[];
   const int HALO = p.iters - 1;  // walk reach
   const int RH = WTH + 2 * HALO, RW = WTW + 2 * HALO;
@@ -318,6 +328,9 @@ __global__ void __launch_bounds__(WTHREADS) detect_walk_kernel(
   const int tid = threadIdx.x;
   const int cs = (c0 - HALO - 1) & ~3;  // aligned first tile column
   const int xoff = c0 - HALO - 1 - cs;
+  // the start-pixel window: the image's true size when it is padded
+  const int hk = vhw ? min(H, vhw[2 * b]) : H;
+  const int wk = vhw ? min(W, vhw[2 * b + 1]) : W;
 
   const int nq = IW >> 2;
   for (int e = tid; e < IH * nq; e += WTHREADS) {
@@ -350,8 +363,8 @@ __global__ void __launch_bounds__(WTHREADS) detect_walk_kernel(
     const Fit m = fit_at(sl, sc, sh, si, IW);
     uint8_t f = walk_record(m, gr, gc, H, W, p);
     if (gr < H && gc < W) {
-      const bool keep = gr >= p.border && gr < H - p.border &&
-                        gc >= p.border && gc < W - p.border;
+      const bool keep = gr >= p.border && gr < hk - p.border &&
+                        gc >= p.border && gc < wk - p.border;
       const bool cand = keep && nms_cand(sl, sc, sh, si, IW, p);
       f |= (cand ? F_CAND : 0) | (edge_bad_of(m, p) ? F_EDGE : 0);
       const size_t g = (size_t)gr * W + gc;
@@ -463,10 +476,11 @@ struct MapsOut {
 };
 
 // The maps of row r at the lane's column from the window's rows r - 1
-// (u), r (m) and r + 1 (d).
+// (u), r (m) and r + 1 (d); hk bounds the mask's rows (the plane's true
+// height, or H).
 __device__ __forceinline__ void maps_at(const MapsRow& u, const MapsRow& m,
                                         const MapsRow& d, int r, int gc,
-                                        int H, int W, bool out_col,
+                                        int hk, int W, bool out_col,
                                         bool keep_c, const Params& p,
                                         const MapsOut& o) {
   const float cx = max_nan(max_nan(u.mx, m.mx), d.mx);
@@ -478,7 +492,7 @@ __device__ __forceinline__ void maps_at(const MapsRow& u, const MapsRow& m,
                          d.lo, m.hi, from_left(m.hi), from_right(m.hi), u.hi,
                          d.hi);
   if (out_col) {
-    const bool keep = keep_c && r >= p.border && r < H - p.border;
+    const bool keep = keep_c && r >= p.border && r < hk - p.border;
     const bool cand = ((m.cu > p.pos_thr) && (m.cu >= mx)) ||
                       ((m.cu < p.neg_thr) && (m.cu <= mn));
     const int g = r * W + gc;
@@ -495,17 +509,21 @@ __global__ void __launch_bounds__(32 * M3_WARPS) detect_maps_kernel(
     const float* __restrict__ high, long long s_low, long long s_cur,
     long long s_high, float4* __restrict__ maps_out,
     uint8_t* __restrict__ nan_out, uint8_t* __restrict__ edge_out,
-    uint8_t* __restrict__ mask_out, int H, int W, Params p) {
+    uint8_t* __restrict__ mask_out, const int32_t* __restrict__ vhw, int H,
+    int W, Params p) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r0 = (blockIdx.y * M3_WARPS + warp) * M3_ROWS;
   if (r0 >= H) return;
   const int n = blockIdx.z;
   const int gc = blockIdx.x * M3_COLS - 1 + lane;
+  // the start-pixel window: the plane's true size when it is padded
+  const int hk = vhw ? min(H, vhw[2 * n]) : H;
+  const int wk = vhw ? min(W, vhw[2 * n + 1]) : W;
   const float* lo = low + n * s_low + clampi(gc, 0, W - 1);
   const float* cu = cur + n * s_cur + clampi(gc, 0, W - 1);
   const float* hi = high + n * s_high + clampi(gc, 0, W - 1);
   const bool out_col = lane >= 1 && lane <= M3_COLS && gc < W;
-  const bool keep_c = gc >= p.border && gc < W - p.border;
+  const bool keep_c = gc >= p.border && gc < wk - p.border;
   const size_t plane = (size_t)n * H * W;
   const MapsOut o = {maps_out + plane, nan_out + plane, edge_out + plane,
                      mask_out + plane};
@@ -528,7 +546,7 @@ __global__ void __launch_bounds__(32 * M3_WARPS) detect_maps_kernel(
     ln = lo[q];                                                \
     cn = cu[q];                                                \
     hn = hi[q];                                                \
-    maps_at(U, M, D, r, gc, H, W, out_col, keep_c, p, o);      \
+    maps_at(U, M, D, r, gc, hk, W, out_col, keep_c, p, o);     \
   }
 #pragma unroll 1
   for (int r = r0; r < rend; r += 3) {
@@ -547,13 +565,18 @@ __global__ void __launch_bounds__(32 * M3_WARPS) detect_maps_kernel(
 // b_sb / b_sl, L >= nl + 1.  Detection level l (1-based) reads resps l-1,
 // l, l+1 and blur l.  Outputs are contiguous: ok (B,nl,H,W) u8, cell
 // (B,nl,H,W) i32, tab (B,nl,5,H,W) f32 = [b0, b1, b2, val, Lxx] planes,
-// cand (B,nl,H,W) u8.  Returns cudaGetLastError().
+// cand (B,nl,H,W) u8.  vhw: null, or B (rows, columns) int32 pairs on
+// the device, each image's true size when it is edge-padded: start
+// pixels then lie in [border, rows - border) x [border, columns -
+// border); the stencils, the solve and the walk's safety border keep
+// the padded H x W.  Returns cudaGetLastError().
 extern "C" int hesaff_detect_walk_octave(
     const float* resps, const float* blurs, long long r_sb, long long r_sl,
     long long b_sb, long long b_sl, uint8_t* ok, int32_t* cell, float* tab,
-    uint8_t* cand, int B, int nl, int H, int W, int border, float pos_thr,
-    float neg_thr, float edge_thr, float max_shift, int safety, int iters,
-    float shift_lim, float final_thr, void* stream) {
+    uint8_t* cand, const int32_t* vhw, int B, int nl, int H, int W,
+    int border, float pos_thr, float neg_thr, float edge_thr,
+    float max_shift, int safety, int iters, float shift_lim,
+    float final_thr, void* stream) {
   if (iters < 1 || iters > 16 || nl < 1 || B < 1 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -581,8 +604,8 @@ extern "C" int hesaff_detect_walk_octave(
   if (tiles_x * nl > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)(tiles_x * nl), (H + WTH - 1) / WTH, B);
   detect_walk_kernel<<<grid, WTHREADS, shmem, (cudaStream_t)stream>>>(
-      resps, blurs, r_sb, r_sl, b_sb, b_sl, ok, cell, tab, cand, nl, H, W,
-      vec, p);
+      resps, blurs, r_sb, r_sl, b_sb, b_sl, ok, cell, tab, cand, vhw, nl, H,
+      W, vec, p);
   return (int)cudaGetLastError();
 }
 
@@ -590,12 +613,15 @@ extern "C" int hesaff_detect_walk_octave(
 // base + k * stride (elements; rows contiguous).  Outputs are
 // contiguous: maps (n,H,W,4) f32 = [b0, b1, b2, val] with NaN -> 0 and
 // +-inf -> +-FLT_MAX (16-byte aligned), nan / edge / mask (n,H,W) one
-// byte each.  Returns cudaGetLastError().
+// byte each.  vhw: null, or n (rows, columns) int32 pairs on the device,
+// each plane's true size when it is edge-padded (the mask's window, as
+// in hesaff_detect_walk_octave).  Returns cudaGetLastError().
 extern "C" int hesaff_detect_maps(
     const float* low, const float* cur, const float* high, long long s_low,
     long long s_cur, long long s_high, float* maps, uint8_t* nan_flag,
-    uint8_t* edge, uint8_t* mask, int n, int H, int W, int border,
-    float pos_thr, float neg_thr, float edge_thr, void* stream) {
+    uint8_t* edge, uint8_t* mask, const int32_t* vhw, int n, int H, int W,
+    int border, float pos_thr, float neg_thr, float edge_thr,
+    void* stream) {
   Params p = {};
   p.border = border;
   p.pos_thr = pos_thr;
@@ -607,6 +633,6 @@ extern "C" int hesaff_detect_maps(
   dim3 grid((W + M3_COLS - 1) / M3_COLS, (H + rows - 1) / rows, n);
   detect_maps_kernel<<<grid, 32 * M3_WARPS, 0, (cudaStream_t)stream>>>(
       low, cur, high, s_low, s_cur, s_high, (float4*)maps, nan_flag, edge,
-      mask, H, W, p);
+      mask, vhw, H, W, p);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,14 @@ two paths per octave, by the JAX package's rule:
   the results differ too: the port reproduces each path as the JAX
   package runs it.
 
+Padded mode: every entry takes an optional ``valid_hw``, (B, 2) int32
+true sizes of the octave's images when a batch is edge-padded to a
+shape bucket.  It narrows the start pixels only (r < h - border,
+c < w - border; n_cand counts the narrowed window); the 3x3x3
+neighbourhoods, the solve and the walk's safety border keep the padded
+dimensions, as in the JAX package (``hesaff_tpu/detect.py:603-623``).
+The kernels take it by pointer.
+
 Overflow of any capacity is counted, never silent.
 ``candidate_mask``, ``_localization_maps`` and ``_walk_dense`` are the
 plain versions of the kernels, operation for operation the JAX twin's.
@@ -83,8 +91,12 @@ def _frame(shape, device):
     return rows, cols
 
 
-def candidate_mask(low, cur, high, cfg: HesaffConfig) -> torch.Tensor:
-    """Thresholded strict 3x3x3 NMS (ties survive) inside the border."""
+def candidate_mask(low, cur, high, cfg: HesaffConfig,
+                   valid_hw=None) -> torch.Tensor:
+    """Thresholded strict 3x3x3 NMS (ties survive) inside the border.
+
+    valid_hw: None, or (N, 2) true sizes of the N planes; the window
+    [border, dim - border) then uses them."""
     mx = cur
     mn = cur
     for lvl in (low, cur, high):
@@ -101,6 +113,10 @@ def candidate_mask(low, cur, high, cfg: HesaffConfig) -> torch.Tensor:
     b = cfg.border
     H, W = cur.shape[-2], cur.shape[-1]
     keep = (rows >= b) & (rows < H - b) & (cols >= b) & (cols < W - b)
+    if valid_hw is not None:
+        vhw = valid_hw.to(cur.device)
+        keep = (keep & (rows < vhw[:, 0, None, None] - b)
+                & (cols < vhw[:, 1, None, None] - b))
     return (pos | neg) & keep
 
 
@@ -287,7 +303,8 @@ def _walk_window(maps, nan_flag, edge, blur, r0, c0, cur_scale: float,
 
 
 def detect_level(low, cur, high, blur, cur_scale: float, pd: float,
-                 capacity: int, cfg: HesaffConfig) -> LevelKeypoints:
+                 capacity: int, cfg: HesaffConfig,
+                 valid_hw=None) -> LevelKeypoints:
     """Candidates and their localisation walks for one detection level.
 
     low/cur/high/blur: (B, H, W) planes (rows contiguous).  The maps come
@@ -295,7 +312,7 @@ def detect_level(low, cur, high, blur, cur_scale: float, pd: float,
     `capacity` (overflow counted), walk through their windows of them.
     """
     maps, nan_flag, edge, mask = cuda_detect.detect_maps(low, cur, high,
-                                                         cfg)
+                                                         cfg, valid_hw)
     rows, cols, valid, overflow = compact_candidates(mask, capacity)
     ok, x, y, s, val, ptype, r_f, c_f = _walk_window(
         maps, nan_flag, edge, blur, rows, cols, cur_scale, pd, cfg)
@@ -334,7 +351,7 @@ def compact_levels(levels: list[LevelKeypoints], capacity: int) -> dict:
 
 
 def detect_octave_sparse(resps, blurs, sig, pd: float, cfg: HesaffConfig,
-                         octave: int = 0) -> dict:
+                         octave: int = 0, valid_hw=None) -> dict:
     """Octave detection through detect_level: three levels, dedup, one
     compaction to the affine capacity.  Only one level's maps are alive
     at a time.  overflow counts the level capacities' and the affine
@@ -342,7 +359,7 @@ def detect_octave_sparse(resps, blurs, sig, pd: float, cfg: HesaffConfig,
     H, W = resps.shape[-2], resps.shape[-1]
     cap = cfg.level_capacity(H, W, octave)
     levels = [detect_level(resps[:, l - 1], resps[:, l], resps[:, l + 1],
-                           blurs[:, l], sig[l], pd, cap, cfg)
+                           blurs[:, l], sig[l], pd, cap, cfg, valid_hw)
               for l in range(1, cfg.num_scales + 1)]
     levels = dedup_octave(levels, H, W)
     comp = compact_levels(levels, cfg.affine_capacity(H, W, octave))
@@ -352,22 +369,25 @@ def detect_octave_sparse(resps, blurs, sig, pd: float, cfg: HesaffConfig,
 
 
 def detect_octave_batch(resps, blurs, sig, pd: float, cfg: HesaffConfig,
-                        octave: int = 0):
+                        octave: int = 0, valid_hw=None):
     """Whole-batch octave detection.
 
     resps, blurs: (B, L, H, W) with L = num_scales + 2; sig: per-level
     sigmas.  Octaves of SPARSE_PATH_PIXELS or more take the sparse path,
-    smaller ones the dense walk.  Returns a dict of (B, acap) fields ok /
-    level / x / y / s / response / type, plus (B,) overflow and n_cand.
+    smaller ones the dense walk.  valid_hw: None, or (B, 2) int32 true
+    sizes of the octave's edge-padded images.  Returns a dict of (B,
+    acap) fields ok / level / x / y / s / response / type, plus (B,)
+    overflow and n_cand.
     """
     H, W = resps.shape[-2], resps.shape[-1]
     if H * W >= SPARSE_PATH_PIXELS:
-        return detect_octave_sparse(resps, blurs, sig, pd, cfg, octave)
-    return detect_octave_dense(resps, blurs, sig, pd, cfg, octave)
+        return detect_octave_sparse(resps, blurs, sig, pd, cfg, octave,
+                                    valid_hw)
+    return detect_octave_dense(resps, blurs, sig, pd, cfg, octave, valid_hw)
 
 
 def detect_octave_dense(resps, blurs, sig, pd: float, cfg: HesaffConfig,
-                        octave: int = 0) -> dict:
+                        octave: int = 0, valid_hw=None) -> dict:
     """Whole-batch octave detection via the dense walk (K2)."""
     B = resps.shape[0]
     H, W = resps.shape[-2], resps.shape[-1]
@@ -375,7 +395,8 @@ def detect_octave_dense(resps, blurs, sig, pd: float, cfg: HesaffConfig,
     nl = cfg.num_scales
     acap = cfg.affine_capacity(H, W, octave)
 
-    ok, cell, tab, cand = cuda_detect.detect_walk_octave(resps, blurs, cfg)
+    ok, cell, tab, cand = cuda_detect.detect_walk_octave(resps, blurs, cfg,
+                                                         valid_hw)
     n_cand = cand.reshape(B, -1).sum(dim=1)
     idx, valid, overflow = compact_rows(ok.reshape(B, nl * HW), acap)
     level0 = idx // HW

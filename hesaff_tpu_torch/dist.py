@@ -1,8 +1,8 @@
 """The grouped serving path: phase A, grouped patch extraction, SIFT.
 
 Port of ``hesaff_tpu/dist.py``'s extraction_step_grouped (the step
-bench.py, the fleet runner and the retrieval bench serve with), without
-padded (valid_hw) mode and without torch.distributed.  The JAX package
+bench.py, the fleet runner and the retrieval bench serve with), padded
+(valid_hw) mode included, without torch.distributed.  The JAX package
 splits the step into separately compiled stages; here one Python
 function loops over the groups and every result stays on the device.
 
@@ -30,7 +30,7 @@ from typing import NamedTuple, Sequence
 import torch
 from torch.profiler import record_function
 
-from hesaff_tpu_torch.batch import detect_affine_batch
+from hesaff_tpu_torch.batch import as_valid_hw, detect_affine_batch
 from hesaff_tpu_torch.config import DEFAULT_CONFIG, HesaffConfig
 from hesaff_tpu_torch.ops.batching import compact_indices
 from hesaff_tpu_torch.ops.cuda_patches import (extract_group,
@@ -153,13 +153,14 @@ def describe_valid(patches, valid, cfg: HesaffConfig):
         return describe_masked(patches, valid, cfg)
 
 
-def phase_a(images: torch.Tensor, cfg: HesaffConfig):
-    """Phase A with flat per-slot fields.
+def phase_a(images: torch.Tensor, cfg: HesaffConfig, valid_hw=None):
+    """Phase A with flat per-slot fields; valid_hw: None or (B, 2) int32
+    true sizes of edge-padded images.
 
     Returns (flat fields (B * N_cap,), next_firsts, candidate overflow,
     slots per image)."""
     with record_function("phase A"):
-        out = detect_affine_batch(images, cfg)
+        out = detect_affine_batch(images, cfg, valid_hw)
     levels_a = out.pop("next_firsts")
     flat = {k: v.reshape(-1) for k, v in out.items()
             if k not in ("overflow", "n_cand")}
@@ -197,49 +198,54 @@ def group_selections(flat, cfg: HesaffConfig, groups: Sequence[tuple],
 
 
 def group_patches(images, cfg: HesaffConfig, bsize: int, prev: int, gi, a,
-                  valid, levels_a, cache: dict):
+                  valid, levels_a, cache: dict, valid_hw=None):
     """Patches and ok flags of one group's selection: at full
     resolution up to FULL_RES_GROUP_MAX, above it from the pyramid level
     tail_source_plan picks (or, with tail_from_pyramid off, through the
-    reference's full-resolution bucket path, slots unsorted)."""
+    reference's full-resolution bucket path, slots unsorted).  valid_hw:
+    the true sizes of edge-padded images, for the corner check."""
     kp = (gi, *(a[k] for k in ("x", "y", "s", "a11")))
     with record_function(f"group {bsize}: patches"):
         if bsize <= FULL_RES_GROUP_MAX:
             return extract_group(images, bsize, *kp, a["a21"], a["a22"],
-                                 cfg, valid)
+                                 cfg, valid, valid_hw)
         if cfg.tail_from_pyramid:
             ps, octave, bucket_src = tail_source_plan(
                 bsize, 0.5 if cfg.upscale_input else 1.0)
             src = tail_source_level(images, cfg, octave, levels_a, cache)
             return extract_group_scaled(
                 src.contiguous(), ps, bucket_src, *kp, a["a21"], a["a22"],
-                cfg, valid, orig_hw=tuple(images.shape[-2:]))
+                cfg, valid, orig_hw=tuple(images.shape[-2:]),
+                valid_hw=valid_hw)
         return extract_bucket_batch(images, bsize, *kp, a["a12"], a["a21"],
                                     a["a22"], cfg, active=valid,
-                                    prev_bucket=prev)
+                                    prev_bucket=prev, valid_hw=valid_hw)
 
 
 def extraction_step_grouped(images, cfg: HesaffConfig,
-                            groups: Sequence[tuple],
+                            groups: Sequence[tuple], valid_hw=None,
                             device=None) -> DenseFeatures:
     """Phase A, grouped patch extraction and masked SIFT for a batch.
 
     images: (B, H, W) float32 array or tensor; groups: ((bound,
-    capacity), ...) from default_group_spec; device: where to run
-    (default: the tensor's device, or the GPU for numpy input; pass
-    "cpu" to run on the CPU).  Returns DenseFeatures of tensors on the
-    device.
+    capacity), ...) from default_group_spec; valid_hw: optional (B, 2)
+    int32 true sizes when the batch is edge-padded to a shape bucket
+    (the detection window and every group's corner check use them, as
+    in extract_batch); device: where to run (default: the tensor's
+    device, or the GPU for numpy input; pass "cpu" to run on the CPU).
+    Returns DenseFeatures of tensors on the device.
     """
     images = torch.as_tensor(images, dtype=torch.float32,
                              device=resolve_device(images, device))
     images = images.contiguous()
-    flat, levels_a, overflow, ncap = phase_a(images, cfg)
+    valid_hw = as_valid_hw(valid_hw, images.device)
+    flat, levels_a, overflow, ncap = phase_a(images, cfg, valid_hw)
     levels = {}
     pieces = []
     for bsize, prev, gi, a, valid, over in group_selections(flat, cfg, groups,
                                                            ncap):
         pk, pok = group_patches(images, cfg, bsize, prev, gi, a, valid,
-                                levels_a, levels)
+                                levels_a, levels, valid_hw)
         pieces.append((pk, pok, gi, a))
         overflow = overflow + over
     ws, its = _workspace(flat, cfg)
@@ -252,7 +258,7 @@ def extraction_step_grouped(images, cfg: HesaffConfig,
             gi, a, valid = _gather(flat, idx, valid, ncap, sort=False)
             pk, pok = direct_patches(images, gi, a["x"], a["y"], a["s"],
                                      a["a11"], a["a21"], a["a22"], cfg,
-                                     valid)
+                                     valid, valid_hw)
         pieces.append((pk, pok, gi, a))
         overflow = overflow + over
 

@@ -14,6 +14,15 @@ Two kernels of csrc/detect_walk.cu, each replacing a TPU kernel of
 A CPU tensor takes the plain PyTorch version (``detect.candidate_mask``
 + ``_localization_maps``, then ``_walk_dense`` for K2, level by level);
 a CUDA tensor launches the kernel or raises.
+
+Padded mode: both take an optional ``valid_hw``, (B, 2) int32 rows and
+columns of each image (for K3 each plane) when a batch is edge-padded
+to a shape bucket.  Start pixels (the NMS candidates, and so ``ok``)
+then lie in [border, h - border) x [border, w - border); everything
+else keeps the padded H x W, as the JAX package ANDs the window onto
+the kernel's ok / cand outside it (``hesaff_tpu/detect.py:603-623``).
+The kernels take the limits by pointer and apply them where they build
+the window.
 """
 
 from __future__ import annotations
@@ -30,25 +39,26 @@ MAPS_LAUNCHES = 0
 
 _vp, _i, _f, _ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                     ctypes.c_longlong)
-_MAPS_ARGTYPES = [_vp] * 3 + [_ll] * 3 + [_vp] * 4 + [_i] * 4 + [_f] * 3 + [
+_MAPS_ARGTYPES = [_vp] * 3 + [_ll] * 3 + [_vp] * 5 + [_i] * 4 + [_f] * 3 + [
     _vp]
-_WALK_ARGTYPES = [_vp] * 2 + [_ll] * 4 + [_vp] * 4 + [_i] * 5 + [
+_WALK_ARGTYPES = [_vp] * 2 + [_ll] * 4 + [_vp] * 5 + [_i] * 5 + [
     _f, _f, _f, _f, _i, _i, _f, _f, _vp]
 
 
-def detect_maps_plain(low, cur, high, cfg):
+def detect_maps_plain(low, cur, high, cfg, valid_hw=None):
     """Plain PyTorch version of detect_maps (same outputs)."""
     from hesaff_tpu_torch import detect
 
-    mask = detect.candidate_mask(low, cur, high, cfg)
+    mask = detect.candidate_mask(low, cur, high, cfg, valid_hw)
     maps, edge = detect._localization_maps(low, cur, high, cfg)
     nan_flag = maps[..., :3].isnan().any(dim=-1)
     return torch.nan_to_num(maps), nan_flag, edge, mask
 
 
-def detect_walk_plain(low, cur, high, blur, cfg):
+def detect_walk_plain(low, cur, high, blur, cfg, valid_hw=None):
     """Plain PyTorch walk of one detection level: low/cur/high (N, H, W)
-    DoH planes of levels l-1, l, l+1, blur (N, H, W) of level l.
+    DoH planes of levels l-1, l, l+1, blur (N, H, W) of level l;
+    valid_hw: None or (N, 2) true sizes (the start-pixel window).
 
     Returns (ok (N,H,W) bool, cell (N,H,W) int32 final cell r*W+c of each
     start pixel's walk, tab (N,H,W,5) float32 = [b0, b1, b2, val, Lxx],
@@ -56,7 +66,8 @@ def detect_walk_plain(low, cur, high, blur, cfg):
     """
     from hesaff_tpu_torch import detect
 
-    clean, nan_flag, edge_bad, cand = detect_maps_plain(low, cur, high, cfg)
+    clean, nan_flag, edge_bad, cand = detect_maps_plain(low, cur, high, cfg,
+                                                        valid_hw)
     ok, cell = detect._walk_dense(clean, nan_flag, edge_bad, cand, cfg)
     lxx = (detect._shift_rep(blur, 0, -1) - 2.0 * blur
            + detect._shift_rep(blur, 0, 1))
@@ -64,23 +75,25 @@ def detect_walk_plain(low, cur, high, blur, cfg):
     return ok, cell, tab, cand
 
 
-def detect_walk_octave_plain(resps, blurs, cfg):
+def detect_walk_octave_plain(resps, blurs, cfg, valid_hw=None):
     """Plain PyTorch version of detect_walk_octave (same outputs): the
     per-level walk of every detection level, stacked."""
     levels = [detect_walk_plain(resps[:, l - 1], resps[:, l],
-                                resps[:, l + 1], blurs[:, l], cfg)
+                                resps[:, l + 1], blurs[:, l], cfg, valid_hw)
               for l in range(1, cfg.num_scales + 1)]
     ok, cell, tab, cand = (torch.stack(v, dim=1) for v in zip(*levels))
     return ok, cell, tab.permute(0, 1, 4, 2, 3).contiguous(), cand
 
 
-def detect_walk_octave(resps, blurs, cfg):
+def detect_walk_octave(resps, blurs, cfg, valid_hw=None):
     """Every detection level of an octave.
 
     resps: (B, L, H, W) DoH ladder with L >= num_scales + 2; blurs: (B,
     L', H, W) blur ladder with L' >= num_scales + 1.  Rows must be
     contiguous; images and levels may be strided.  Detection level l
-    (1-based) reads resps l-1, l, l+1 and blur l.
+    (1-based) reads resps l-1, l, l+1 and blur l.  valid_hw: None, or
+    (B, 2) int32 true sizes of edge-padded images (the start-pixel
+    window).
 
     Returns, for nl = num_scales levels: ok (B,nl,H,W) bool, cell
     (B,nl,H,W) int32 final cell r*W+c of each start pixel's walk, tab
@@ -88,16 +101,17 @@ def detect_walk_octave(resps, blurs, cfg):
     bool NMS candidates inside the border window.
     """
     if resps.device.type == "cpu":
-        return detect_walk_octave_plain(resps, blurs, cfg)
+        return detect_walk_octave_plain(resps, blurs, cfg, valid_hw)
     if resps.device.type != "cuda":
         raise ValueError(
             f"detect_walk_octave: unsupported device {resps.device}")
-    return _launch(resps, blurs, cfg)
+    return _launch(resps, blurs, cfg, valid_hw)
 
 
-def detect_maps(low, cur, high, cfg):
+def detect_maps(low, cur, high, cfg, valid_hw=None):
     """low/cur/high: (N, H, W) DoH planes of levels l-1, l, l+1, rows
-    contiguous; planes may be strided views.
+    contiguous; planes may be strided views.  valid_hw: None, or (N, 2)
+    int32 true sizes of edge-padded planes (the mask's window).
 
     Returns (maps (N,H,W,4) float32 = [b0, b1, b2, val] with NaN -> 0
     and +-inf -> the largest finite float, nan (N,H,W) bool where any of
@@ -105,10 +119,22 @@ def detect_maps(low, cur, high, cfg):
     (N,H,W) bool strict NMS candidates inside the border window).
     """
     if cur.device.type == "cpu":
-        return detect_maps_plain(low, cur, high, cfg)
+        return detect_maps_plain(low, cur, high, cfg, valid_hw)
     if cur.device.type != "cuda":
         raise ValueError(f"detect_maps: unsupported device {cur.device}")
-    return _launch_maps(low, cur, high, cfg)
+    return _launch_maps(low, cur, high, cfg, valid_hw)
+
+
+def _limits(valid_hw, n: int, device):
+    """The kernels' limits argument: NULL, or a pointer to valid_hw,
+    checked to be (n, 2) contiguous int32 sizes on `device`."""
+    if valid_hw is None:
+        return ctypes.c_void_p(None)
+    if (valid_hw.dtype != torch.int32 or tuple(valid_hw.shape) != (n, 2)
+            or valid_hw.device != device or not valid_hw.is_contiguous()):
+        raise ValueError(f"valid_hw: needs contiguous int32 ({n}, 2) sizes "
+                         f"on {device}")
+    return cuda_build.ptr(valid_hw)
 
 
 def _check_planes(planes, what):
@@ -121,11 +147,12 @@ def _check_planes(planes, what):
                              "with contiguous rows on one device")
 
 
-def _launch_maps(low, cur, high, cfg):
+def _launch_maps(low, cur, high, cfg, valid_hw):
     global MAPS_LAUNCHES
     _check_planes((low, cur, high), "detect_maps")
     N, H, W = cur.shape
     dev = cur.device
+    vhw_ptr = _limits(valid_hw, N, dev)
     maps = torch.empty((N, H, W, 4), dtype=torch.float32, device=dev)
     flags = [torch.empty((N, H, W), dtype=torch.bool, device=dev)
              for _ in range(3)]
@@ -135,7 +162,7 @@ def _launch_maps(low, cur, high, cfg):
     with torch.cuda.device(dev):
         err = fn(*(cuda_build.ptr(t) for t in (low, cur, high)),
                  *(t.stride(0) for t in (low, cur, high)),
-                 *(cuda_build.ptr(t) for t in (maps, *flags)),
+                 *(cuda_build.ptr(t) for t in (maps, *flags)), vhw_ptr,
                  N, H, W, cfg.border, cfg.positive_threshold,
                  cfg.negative_threshold, cfg.edge_score_threshold,
                  cuda_build.stream())
@@ -144,7 +171,7 @@ def _launch_maps(low, cur, high, cfg):
     return (maps, *flags)
 
 
-def _launch(resps, blurs, cfg):
+def _launch(resps, blurs, cfg, valid_hw):
     global LAUNCHES
     nl = cfg.num_scales
     B, _, H, W = resps.shape
@@ -157,6 +184,7 @@ def _launch(resps, blurs, cfg):
                              "W) ladders with contiguous rows on one "
                              "device")
     dev = resps.device
+    vhw_ptr = _limits(valid_hw, B, dev)
     ok = torch.empty((B, nl, H, W), dtype=torch.uint8, device=dev)
     cell = torch.empty((B, nl, H, W), dtype=torch.int32, device=dev)
     tab = torch.empty((B, nl, 5, H, W), dtype=torch.float32, device=dev)
@@ -170,7 +198,7 @@ def _launch(resps, blurs, cfg):
                  resps.stride(0), resps.stride(1), blurs.stride(0),
                  blurs.stride(1),
                  *(cuda_build.ptr(t) for t in (ok, cell, tab, cand)),
-                 B, nl, H, W, cfg.border, cfg.positive_threshold,
+                 vhw_ptr, B, nl, H, W, cfg.border, cfg.positive_threshold,
                  cfg.negative_threshold, cfg.edge_score_threshold,
                  cfg.max_subpixel_shift, cfg.point_safety_border,
                  cfg.localize_iterations, cfg.final_shift_limit,

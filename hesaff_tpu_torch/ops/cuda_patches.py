@@ -32,7 +32,7 @@ from hesaff_tpu_torch.ops import cuda_build
 from hesaff_tpu_torch.ops.linalg import fdiv
 from hesaff_tpu_torch.ops.warp import check_borders
 from hesaff_tpu_torch.patches import (_device_gauss_taps,
-                                      _max_ksize_for_bucket, _warp)
+                                      _max_ksize_for_bucket, _warp, true_dims)
 
 # launches of the CUDA kernel in this process
 LAUNCHES = 0
@@ -163,7 +163,7 @@ def _launch(src, img_idx, x, y, a11, a21, a22, ws, its, taps, active, P):
 
 
 def group_args(images, bucket: int, img_idx, x, y, s, a11, a21, a22, cfg,
-               active, ps: float = 1.0, orig_hw=None):
+               active, ps: float = 1.0, orig_hw=None, valid_hw=None):
     """patches_group's arguments for one group, and the corner check.
 
     images: (B, H, W) full resolution (ps == 1) or, for the pyramid
@@ -176,15 +176,17 @@ def group_args(images, bucket: int, img_idx, x, y, s, a11, a21, a22, cfg,
     2*ceil(S/(2 ps))+3) and the sigma drops the blur the level already
     carries: sqrt(max((f its/ps)^2 - sigma0^2, 1e-4)).  The boundary
     pre-check stays in original coordinates and dims (orig_hw, default
-    the source's).  Returns (args, corner_bad).
+    the source's), or, for edge-padded images, each keypoint's image's
+    true size in original pixels (valid_hw, (B, 2)); K5's own bad flag
+    keeps the source's padded dimensions.  Returns (args, corner_bad).
     """
     P = cfg.patch_size
     kmax = _max_ksize_for_bucket(bucket, P, cfg.patch_smooth_factor)
     S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
     its = fdiv(S.float(), P)
     H, W = orig_hw if orig_hw is not None else images.shape[-2:]
-    corner_bad = check_borders(H, W, P, P, x, y, a11 * its, 0.0, a21 * its,
-                               a22 * its)
+    corner_bad = check_borders(*true_dims(valid_hw, img_idx, H, W), P, P, x,
+                               y, a11 * its, 0.0, a21 * its, a22 * its)
     if ps == 1.0:
         ws, sigma = S + 2, cfg.patch_smooth_factor * its
     else:
@@ -202,22 +204,24 @@ def group_args(images, bucket: int, img_idx, x, y, s, a11, a21, a22, cfg,
 
 
 def extract_group(images, bucket: int, img_idx, x, y, s, a11, a21, a22,
-                  cfg, active):
+                  cfg, active, valid_hw=None):
     """Blur-branch patches of one group at full resolution.
 
     images: (B, H, W); per keypoint (K,) tensors; the frame is rectified
-    (a12 == 0).  Mirrors patches.extract_bucket_batch for the blur
-    branch (direct-branch keypoints go elsewhere).  Returns
-    (patches (K, P, P), ok (K,)).
+    (a12 == 0); valid_hw: None or (B, 2) true sizes of edge-padded
+    images.  Mirrors patches.extract_bucket_batch for the blur branch
+    (direct-branch keypoints go elsewhere).  Returns (patches (K, P, P),
+    ok (K,)).
     """
     args, corner_bad = group_args(images, bucket, img_idx, x, y, s, a11,
-                                  a21, a22, cfg, active)
+                                  a21, a22, cfg, active, valid_hw=valid_hw)
     pk, bad = patches_group(*args)
     return pk, active & ~corner_bad & ~bad
 
 
 def extract_group_scaled(images_src, ps: float, bucket: int, img_idx, x, y,
-                         s, a11, a21, a22, cfg, active, orig_hw):
+                         s, a11, a21, a22, cfg, active, orig_hw,
+                         valid_hw=None):
     """Patches of large keypoints warped from a downsampled level.
 
     images_src: (B, H/ps, W/ps), the first level of the pyramid octave
@@ -227,6 +231,6 @@ def extract_group_scaled(images_src, ps: float, bucket: int, img_idx, x, y,
     """
     args, corner_bad = group_args(images_src, bucket, img_idx, x, y, s, a11,
                                   a21, a22, cfg, active, ps=ps,
-                                  orig_hw=orig_hw)
+                                  orig_hw=orig_hw, valid_hw=valid_hw)
     pk, bad = patches_group(*args)
     return pk, active & ~corner_bad & ~bad

@@ -14,6 +14,11 @@ The JAX package samples with one-hot matmuls (slow gathers on a TPU);
 here every sample is a direct 4-tap gather, and the keypoints of a
 bucket run in chunks that bound chunk * bucket^2.  Only active slots
 are computed.
+
+Padded mode: with valid_hw, the (B, 2) true sizes of edge-padded
+images, the corner pre-check uses each keypoint's image's true size;
+the warp's own out-of-source flag keeps the padded dimensions, as in
+the JAX package (``hesaff_tpu/patches.py:240-255``).
 """
 
 from __future__ import annotations
@@ -73,6 +78,15 @@ def _device_gauss_taps(sigma, ksize, kmax: int):
     w = torch.exp(-(off * off) / (2.0 * sg * sg))
     w = torch.where(off.abs() <= r_true, w, 0.0)
     return w / w.sum(dim=1, keepdim=True)
+
+
+def true_dims(valid_hw, img_idx, H: int, W: int):
+    """(h, w) of the corner pre-check: the padded H, W, or each
+    keypoint's image's true size from valid_hw (B, 2)."""
+    if valid_hw is None:
+        return H, W
+    vhw = valid_hw.to(img_idx.device)[img_idx.long()]
+    return vhw[:, 0], vhw[:, 1]
 
 
 def _min_workspace(cfg: HesaffConfig) -> int:
@@ -163,15 +177,17 @@ def _subsample(ws_img, ws, its, patch_size: int):
 
 def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
                          x, y, s, a11, a12, a21, a22, cfg: HesaffConfig,
-                         active=None, prev_bucket: int = 0):
+                         active=None, prev_bucket: int = 0, valid_hw=None):
     """Patches for keypoints assigned to one workspace bucket.
 
     images: (B, H, W); the other arguments (K,) per keypoint (images may
     differ).  active: (K,) bool, real slots (others are not computed).
     prev_bucket: the next smaller bucket size, which bounds whether this
     bucket can hold direct-branch keypoints.  The frame must be
-    rectified (a12 == 0).  Returns (patches (K, P, P), ok (K,)) with
-    ok = False where the patch touches the image boundary.
+    rectified (a12 == 0).  valid_hw: None, or (B, 2) true sizes of
+    edge-padded images, for the corner pre-check.  Returns (patches (K,
+    P, P), ok (K,)) with ok = False where the patch touches the image
+    boundary.
 
     On a CUDA tensor the blur-branch keypoints go through the fused
     patch kernel (ops/cuda_patches) and only direct-branch keypoints
@@ -188,13 +204,13 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
     mixed = use_blur and smallest_ws <= cfg.oversample_cutoff * P + 2
     if images.device.type == "cuda":
         return _bucket_on_card(images, bucket, img_idx, x, y, s, a11, a21,
-                               a22, cfg, active, use_blur, mixed)
+                               a22, cfg, active, use_blur, mixed, valid_hw)
 
     S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
     its = fdiv(S.float(), P)
     ws = S + 2
-    corner_bad = check_borders(H, W, P, P, x, y, a11 * its, a12 * its,
-                               a21 * its, a22 * its)
+    corner_bad = check_borders(*true_dims(valid_hw, img_idx, H, W), P, P, x,
+                               y, a11 * its, a12 * its, a21 * its, a22 * its)
     kmax = _max_ksize_for_bucket(bucket, P, cfg.patch_smooth_factor)
 
     patches = torch.zeros((K, P, P), dtype=torch.float32, device=dev)
@@ -230,7 +246,7 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
 
 
 def direct_patches(images: torch.Tensor, img_idx, x, y, s, a11, a21, a22,
-                   cfg: HesaffConfig, active):
+                   cfg: HesaffConfig, active, valid_hw=None):
     """Direct-warp branch: a P x P warp with A * imageToPatchScale and no
     smoothing, for keypoints with imageToPatchScale <= oversample_cutoff.
 
@@ -241,8 +257,8 @@ def direct_patches(images: torch.Tensor, img_idx, x, y, s, a11, a21, a22,
     B, H, W = images.shape
     S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
     its = fdiv(S.float(), P)
-    corner_bad = check_borders(H, W, P, P, x, y, a11 * its, 0.0, a21 * its,
-                               a22 * its)
+    corner_bad = check_borders(*true_dims(valid_hw, img_idx, H, W), P, P, x,
+                               y, a11 * its, 0.0, a21 * its, a22 * its)
     K = x.shape[0]
     patches = torch.zeros((K, P, P), dtype=torch.float32, device=x.device)
     touched = torch.zeros(K, dtype=torch.bool, device=x.device)
@@ -258,7 +274,8 @@ def direct_patches(images: torch.Tensor, img_idx, x, y, s, a11, a21, a22,
 
 
 def _bucket_on_card(images, bucket: int, img_idx, x, y, s, a11, a21, a22,
-                    cfg: HesaffConfig, active, use_blur: bool, mixed: bool):
+                    cfg: HesaffConfig, active, use_blur: bool, mixed: bool,
+                    valid_hw=None):
     """extract_bucket_batch on a GPU: blur-branch keypoints through the
     fused patch kernel, direct-branch keypoints through the direct
     warp."""
@@ -266,16 +283,16 @@ def _bucket_on_card(images, bucket: int, img_idx, x, y, s, a11, a21, a22,
 
     if not use_blur:
         return direct_patches(images, img_idx, x, y, s, a11, a21, a22, cfg,
-                              active)
+                              active, valid_hw)
     direct = torch.zeros_like(active)
     if mixed:
         S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
         direct = fdiv(S.float(), cfg.patch_size) <= cfg.oversample_cutoff
     pk, ok = extract_group(images, bucket, img_idx, x, y, s, a11, a21, a22,
-                           cfg, active & ~direct)
+                           cfg, active & ~direct, valid_hw)
     if bool((active & direct).any()):
         dp, dok = direct_patches(images, img_idx, x, y, s, a11, a21, a22,
-                                 cfg, active & direct)
+                                 cfg, active & direct, valid_hw)
         pk = torch.where(direct[:, None, None], dp, pk)
         ok = torch.where(direct, dok, ok)
     return pk, ok

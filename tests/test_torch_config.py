@@ -82,7 +82,9 @@ def test_every_port_module_imports_without_the_jax_package():
     names = set(r.stdout.split())
     for mod in ("dist", "ops.cuda_patches", "ops.cuda_sift", "ops.masks",
                 "config", "batch", "pipeline", "sift_io", "native", "match",
-                "evaluate", "ransac", "retrieval", "cli"):
+                "evaluate", "ransac", "retrieval", "cli", "sfm",
+                "utils.fleet", "utils.profiling", "geom.se3", "geom.ba",
+                "geom.posegraph"):
         assert f"hesaff_tpu_torch.{mod}" in names
 
 

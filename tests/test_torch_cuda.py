@@ -22,7 +22,13 @@ its float entry, zero rows where not valid).  After the descriptors
 run on uint8 descriptors (a single database row's padded dist2 at rtol
 1e-6), match pairs equal; RANSAC and the pose to tests/test_ransac.py's
 thresholds; the Oxford file from CUDA tensors byte-equal to the one
-from their numpy copies.
+from their numpy copies.  Padded mode: K2 and K3 with per-image limits
+equal to their plain versions (the table and maps bit-equal to the
+unlimited call's), the padded grouped path equal to its CPU run.
+Geometry: an LM step bit-equal across two runs (dense and tracks),
+within rtol 1e-4 / atol 1e-5 of the CPU step; ba_solve and
+incremental_sfm at tests/test_geom.py's and tests/test_sfm.py's
+thresholds.
 """
 
 import os
@@ -33,6 +39,7 @@ import torch
 
 from hesaff_tpu_torch.config import HesaffConfig
 from _torch_parity import assert_affine_parity, smooth_stacks
+from _torch_scenes import ba_problem, sfm_scene
 
 pytestmark = pytest.mark.cuda
 CFG = HesaffConfig()
@@ -732,3 +739,135 @@ def test_write_sift_file_from_gpu_tensors(dev, tmp_path):
     sift_io.write_sift_file(b, *geo, desc, 5.196)
     with open(a, "rb") as fa, open(b, "rb") as fb:
         assert fa.read() == fb.read()
+
+
+@pytest.mark.parametrize("H,W,vhw", [
+    (200, 240, ((200, 240), (150, 201))), (61, 45, ((40, 45), (61, 9))),
+    (24, 131, ((24, 100), (3, 131)))])
+def test_detect_walk_kernel_limits(dev, H, W, vhw):
+    """K2 with per-image start-pixel limits against its plain version:
+    ok, cand and cells equal at every level, the table at every pixel
+    as without limits, and nothing at or past a limit's border."""
+    from hesaff_tpu_torch.ops import cuda_detect
+
+    rng = np.random.default_rng(5)
+    L = CFG.num_scales + 2
+    resps = torch.as_tensor(smooth_stacks(rng, 2, L, H, W) * 40.0,
+                            device=dev)
+    blurs = torch.as_tensor(smooth_stacks(rng, 2, L, H, W), device=dev)
+    lim = torch.as_tensor(vhw, dtype=torch.int32, device=dev)
+    before = cuda_detect.LAUNCHES
+    ok, cell, tab, cand = cuda_detect.detect_walk_octave(resps, blurs, CFG,
+                                                         lim)
+    pok, pcell, ptab, pcand = cuda_detect.detect_walk_octave_plain(
+        resps, blurs, CFG, lim)
+    torch.cuda.synchronize()
+    assert cuda_detect.LAUNCHES == before + 1
+    assert int(pcand.sum()) > 0
+    assert torch.equal(ok, pok) and torch.equal(cand, pcand)
+    assert torch.equal(cell, pcell)
+    np.testing.assert_allclose(tab.cpu().numpy(), ptab.cpu().numpy(),
+                               rtol=1e-6, atol=1e-5)
+    full = cuda_detect.detect_walk_octave(resps, blurs, CFG)
+    assert torch.equal(tab, full[2])
+    for b, (h, w) in enumerate(vhw):
+        assert not bool(cand[b, :, max(h - CFG.border, 0):].any())
+        assert not bool(cand[b, :, :, max(w - CFG.border, 0):].any())
+        assert torch.equal(cand[b], full[3][b] & pcand[b])
+
+
+@pytest.mark.parametrize("H,W,vhw", [
+    (130, 91, ((130, 91), (97, 50))), (37, 33, ((20, 33), (37, 12)))])
+def test_detect_maps_kernel_limits(dev, H, W, vhw):
+    """K3 with per-plane limits on strided planes: mask equal to the
+    plain version's, maps and the other flags bit-equal to the
+    unlimited call's."""
+    from hesaff_tpu_torch.ops import cuda_detect
+
+    planes = _maps_planes(np.random.default_rng(3), dev, H, W, True, False)
+    lim = torch.as_tensor(vhw, dtype=torch.int32, device=dev)
+    before = cuda_detect.MAPS_LAUNCHES
+    maps, nan_flag, edge, mask = cuda_detect.detect_maps(*planes, CFG, lim)
+    pmask = cuda_detect.detect_maps_plain(*planes, CFG, lim)[3]
+    full = cuda_detect.detect_maps(*planes, CFG)
+    torch.cuda.synchronize()
+    assert cuda_detect.MAPS_LAUNCHES == before + 2
+    assert torch.equal(mask, pmask) and int(pmask.sum()) > 0
+    assert int(pmask.sum()) < int(full[3].sum())
+    assert torch.equal(maps, full[0]) and torch.equal(nan_flag, full[1])
+    assert torch.equal(edge, full[2])
+
+
+def test_padded_grouped_on_gpu_matches_cpu(dev):
+    """The grouped path in padded mode on the card against its CPU run:
+    the same keypoints, descriptors within 2 steps."""
+    import sys
+
+    from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.utils.fleet import pad_to_bucket
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
+    import gen_images
+
+    imgs = [gen_images.synth_image(W, H, seed=s).astype(np.float32).mean(-1)
+            for s, (H, W) in enumerate(((150, 170), (140, 180)))]
+    padded, hw = zip(*[pad_to_bucket(im) for im in imgs])
+    padded, hw = np.stack(padded), np.asarray(hw, np.int32)
+    groups = dist.default_group_spec(*padded.shape[1:], CFG,
+                                     per_image_cap=512, batch=2)
+    gpu = dist.extraction_step_grouped(padded, CFG, groups, valid_hw=hw,
+                                       device=dev)
+    cpu = dist.extraction_step_grouped(padded, CFG, groups, valid_hw=hw,
+                                       device="cpu")
+    gv, cv = gpu.valid.cpu(), cpu.valid
+    assert abs(int(gv.sum()) - int(cv.sum())) <= 1 and int(cv.sum()) > 50
+    assert int(gpu.overflow) == int(cpu.overflow) == 0
+    gi, ci = gpu.img_idx.cpu()[gv].numpy(), cpu.img_idx[cv].numpy()
+    gx, gy = gpu.x.cpu()[gv].numpy(), gpu.y.cpu()[gv].numpy()
+    gd = gpu.desc.cpu()[gv].numpy().astype(int)
+    cd = cpu.desc[cv].numpy().astype(int)
+    for i, (x, y) in enumerate(zip(cpu.x[cv].numpy(), cpu.y[cv].numpy())):
+        d = np.hypot(gx - x, gy - y) + 1e9 * (gi != ci[i])
+        j = int(np.argmin(d))
+        assert d[j] < 0.01
+        assert np.abs(gd[j] - cd[i]).max() <= 2
+
+
+def test_ba_step_bit_equal_across_runs(dev):
+    """A dense and a track-form LM step on the card give the same bits
+    twice (deterministic segment sums, no atomics), agree with the CPU
+    step, and ba_solve converges on the card as on the CPU."""
+    from hesaff_tpu_torch.geom import ba
+
+    p = ba_problem(dev)
+    a = ba._lm_step(p, 0.1)
+    b = ba._lm_step(p, 0.1)
+    tr = ba.problem_to_tracks(p)[0]
+    c = ba._tracks_lm_step(tr, 0.1, True)
+    d = ba._tracks_lm_step(tr, 0.1, True)
+    for x, y in ((a, b), (c, d)):
+        for k in ("cam_rvec", "cam_tvec", "points"):
+            assert torch.equal(getattr(x[0], k), getattr(y[0], k)), k
+        assert torch.equal(x[1], y[1])
+    q = ba_problem("cpu")
+    ref = ba._lm_step(q, 0.1)[0]
+    for k in ("cam_rvec", "cam_tvec", "points"):
+        np.testing.assert_allclose(getattr(a[0], k).cpu().numpy(),
+                                   getattr(ref, k).numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    _, err_g = ba.ba_solve(p, iterations=12)
+    _, err_c = ba.ba_solve(q, iterations=12)
+    assert err_g < 0.45 and abs(err_g - err_c) < 0.02
+
+
+def test_incremental_sfm_on_gpu(dev):
+    """test_sfm.py's scene (rebuilt without JAX) on the card: every
+    frame registered, ATE < 0.15 and rmse < 2e-3, as on the CPU."""
+    from hesaff_tpu_torch import sfm
+
+    tracks, K, rv_gt, tv_gt = sfm_scene()
+    rec = sfm.incremental_sfm(tracks, K, ba_every=3, device=dev)
+    assert len(rec.cam_rvec) == len(rv_gt)
+    ate = sfm.absolute_trajectory_error(rec.cam_rvec, rec.cam_tvec,
+                                        rv_gt, tv_gt)
+    assert ate < 0.15 and rec.rmse < 2e-3

@@ -1,6 +1,7 @@
 """The PyTorch port imports neither JAX nor the JAX package, a CPU run
 launches no kernel, and an entry point given no device runs on the GPU
-or raises: extraction, matching, RANSAC and retrieval alike."""
+or raises: extraction, matching, RANSAC, retrieval, the fleet and SfM
+alike."""
 
 import os
 import subprocess
@@ -23,7 +24,9 @@ def test_port_imports_without_jax():
         "from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, "
         "cuda_build, cuda_detect, cuda_patches, cuda_sift, masks\n"
         "from hesaff_tpu_torch import sift_io, native, match, evaluate, "
-        "ransac, retrieval, cli\n"
+        "ransac, retrieval, cli, sfm\n"
+        "from hesaff_tpu_torch.utils import fleet, profiling\n"
+        "from hesaff_tpu_torch.geom import ba, posegraph, se3\n"
         "assert 'jaxlib' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.startswith('hesaff_tpu.')]\n"
         "print('ok')\n"
@@ -59,7 +62,7 @@ def test_extract_without_device_needs_a_gpu():
 
 
 def _no_device_calls():
-    from hesaff_tpu_torch import evaluate, match, ransac, retrieval
+    from hesaff_tpu_torch import evaluate, match, ransac, retrieval, sfm
 
     rng = np.random.default_rng(0)
     desc = rng.integers(0, 256, (20, 128)).astype(np.uint8)
@@ -74,12 +77,17 @@ def _no_device_calls():
             retrieval.build_index([desc, desc]), desc),
         "repeatability": lambda: evaluate.repeatability(
             ell, ell, np.eye(3), (50, 50), desc, desc),
+        "pnp_ransac": lambda: sfm.pnp_ransac(
+            np.c_[pts, pts[:, :1] + 5.0], pts / 100.0),
+        "triangulate_nview": lambda: sfm.triangulate_nview(
+            np.zeros((2, 3)), np.eye(2, 3), pts[:2] / 100.0),
     }
 
 
 @pytest.mark.parametrize("entry", ["match_descriptors", "knn2",
                                    "ransac_homography", "ransac_fundamental",
-                                   "rank_images", "repeatability"])
+                                   "rank_images", "repeatability",
+                                   "pnp_ransac", "triangulate_nview"])
 def test_downstream_without_device_needs_a_gpu(entry):
     """Numpy input and no device: the GPU, or the device="cpu" error."""
     if torch.cuda.is_available():
