@@ -49,13 +49,25 @@ chunk.  Phase 9 runs geometry on the card against CPU runs:
 incremental_sfm on tests/test_sfm.py's scene (every frame, ATE < 0.15,
 rmse < 2e-3), ba_solve on 50 cameras x 5,000 points and the track form
 on 50 x 10,000 (each converging, within 0.02 px of the CPU, an LM step
-bit-equal on two runs, its ms timed).  Exits non-zero on any failed phase; on success the last line of standard
-output is
+bit-equal on two runs, its ms timed).  Phase 10 runs the multi-device
+slice on the one card: dist.extraction_step_staged (every bucket at full
+resolution) on the 16 bench images with bench.py's bucket table, image
+0 gated against a CPU run and phase 5's grouped output held against it
+with bench.py's verify thresholds; PipelinedExtractor with both stages
+on the card (a stream each) equal to the staged step; a one-rank NCCL
+group (sharded_extraction_step, ring_knn2 on phase 5's 27,774
+descriptors and ba_solve_sharded bit-equal to their one-device forms);
+two gloo ranks sharing the card (spawned: the sharded step image by
+image, ring_knn2 bit-equal to knn2 off ties, sharded_query_votes,
+ba_solve_sharded against mesh=None and itself) and the drop-host
+protocol (rank 0 exits 17 after its barrier's timeout, the union of the
+rounds equal to a dense run).  Exits non-zero on any failed phase; on
+success the last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it holds the per-kernel record: launches in one
-phase-6 call (every kernel runs there) and in phases 4, 5, 6, 7 and 8
+phase-6 call (every kernel runs there) and in phases 4, 5, 6, 7, 8 and 10
 (checked: K1 once a ladder level plus the initial blur, K6 once), max
 abs error against the plain version, the kernel's and the plain
 version's ms (one pair of CUDA events around back-to-back launches, 20
@@ -134,6 +146,9 @@ K4_KERNELS = ("affine_kernel",)
 PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
 
 failures: list[str] = []
+# times that a later phase prints beside its own (knn2_ms of phase 7,
+# track_step_ms of phase 9)
+notes: dict[str, float] = {}
 
 
 def log(msg: str) -> None:
@@ -1190,7 +1205,7 @@ def phase_after(images_np, dense, dense_cpu0, cfg, dev, card: str) -> dict:
     # times on the card
     allq = geo[-1].to(torch.float32)
     N = allq.shape[0]
-    kms = timed(lambda: knn2(allq, allq, device=dev), 5)
+    kms = notes["knn2_ms"] = timed(lambda: knn2(allq, allq, device=dev), 5)
     # query and database read once, idx / dist / dist2 written once
     flops = 2.0 * N * N * 128
     kb = bound(2 * nbytes(allq) + 3 * 4 * N, flops)
@@ -1606,6 +1621,8 @@ def phase_geometry(dev, card: str) -> None:
         check(same and bool(torch.equal(a[1], b[1])),
               f"{label}: an LM step differs between two runs")
         step_ms = timed(one, 5)
+        if solve is ba.ba_solve_sharded:
+            notes["track_step_ms"] = step_ms
         t0 = time.perf_counter()
         _, err_g = solve(p, iterations=8)
         wall_g = time.perf_counter() - t0
@@ -1621,6 +1638,449 @@ def phase_geometry(dev, card: str) -> None:
             f"5 steps after a warm-up), bit-equal on two runs: {same}")
     launches = read_counts()
     check(not any(launches.values()), f"geometry launched {launches}")
+
+
+# phase 10: the pipeline's microbatch and a gloo rank's share of the bench
+# batch; the drop-host barrier's timeout
+PIPE_BATCH = 8
+DROP_TIMEOUT_S = 10.0
+_FEATURE_FIELDS = ("x", "y", "s", "a11", "a12", "a21", "a22", "response")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _verify(out, ref, label: str) -> None:
+    """bench.py's on-chip parity gate (_verify_on_chip) between two
+    DenseFeatures of one batch, over every image: count within 1%, >= 99%
+    of ref's keypoints matched by (image, x, y, s) rounded to 0.01; for
+    each of a11..a22 the matched keypoints' p99.5 <= 0.02 and at most
+    0.2% of them off by more than 0.02; descriptor mean L1 <= 0.05 and
+    <= 1.2% of keypoints with a bin off by more than 2."""
+    pv, rv = out.valid.cpu().numpy(), ref.valid.cpu().numpy()
+    h = lambda d, k, v: getattr(d, k).cpu().numpy()[v]
+    n_p, n_r = int(pv.sum()), int(rv.sum())
+    check(abs(n_p - n_r) <= 0.01 * max(n_r, 1),
+          f"{label}: count {n_p} against {n_r}")
+    keyed = lambda d, v: {
+        (int(i), round(float(x), 2), round(float(y), 2), round(float(s), 2)): j
+        for j, (i, x, y, s) in enumerate(zip(
+            *(h(d, k, v) for k in ("img_idx", "x", "y", "s"))))}
+    kp, kr = keyed(out, pv), keyed(ref, rv)
+    common = sorted(set(kp) & set(kr))
+    check(len(common) >= 0.99 * max(n_r, 1),
+          f"{label}: geometry match {len(common)}/{n_r} below 99%")
+    ip = np.asarray([kp[k] for k in common], np.int64)
+    ir = np.asarray([kr[k] for k in common], np.int64)
+    p995_max, loose_max = 0.0, 0.0
+    for f in ("a11", "a12", "a21", "a22"):
+        d = np.abs(h(out, f, pv)[ip] - h(ref, f, rv)[ir])
+        p995 = float(np.quantile(d, 0.995)) if d.size else 0.0
+        loose = float((d > 0.02).mean()) if d.size else 0.0
+        check(p995 <= 0.02 and loose <= 0.002,
+              f"{label}: {f} p99.5 {p995}, share off by > 0.02 {loose}")
+        p995_max, loose_max = max(p995_max, p995), max(loose_max, loose)
+    dd = np.abs(h(out, "desc", pv)[ip].astype(np.int32)
+                - h(ref, "desc", rv)[ir].astype(np.int32))
+    dmean = float(dd.mean()) if dd.size else 0.0
+    frac = float((dd.max(axis=1) > 2).mean()) if dd.size else 0.0
+    check(dmean <= 0.05 and frac <= 0.012,
+          f"{label}: desc mean L1 {dmean}, kp with a bin off by > 2 {frac}")
+    log(f"{label} (bench.py's verify, all images): count {n_p} against "
+        f"{n_r} (within 1%), matched {len(common)}/{n_r} (>= 99%), a-field "
+        f"p99.5 {p995_max:.4f} (<= 0.02), largest share off by > 0.02 "
+        f"{loose_max:.4f} (<= 0.002), desc mean L1 {dmean:.4f} (<= 0.05), "
+        f"kp with a bin off by > 2 {frac:.4f} (<= 0.012)")
+
+
+def _phase10_rank(rank: int, port: int, in_path: str, out_path: str) -> None:
+    """One of phase 10's two gloo ranks, both on cuda:0 (a spawned
+    process): the sharded bucket step on its 8 bench images, ring_knn2 on
+    its halves of phase 5's descriptors, sharded_query_votes of queries
+    0-3, ba_solve_sharded twice on the 50 x 10,000 track scene, and the
+    times of each (the ranks aligned by a barrier first)."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, TESTS)
+    from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.geom import ba
+    from hesaff_tpu_torch.match import ring_knn2
+    from hesaff_tpu_torch.retrieval import build_index, sharded_query_votes
+    from _torch_scenes import ba_line_scene
+
+    dev = torch.device("cuda", 0)
+    inp = np.load(in_path)
+    cfg = bench_config()
+    dist.init_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    group = dist.make_mesh()
+
+    def align():
+        torch.cuda.synchronize()
+        torch.distributed.barrier(group)
+
+    out = {}
+    buckets = dist.default_bucket_spec(HEIGHT, WIDTH, cfg,
+                                       per_image_cap=1024, batch=BATCH)
+    step = dist.sharded_extraction_step(group, cfg, buckets)
+    imgs = torch.as_tensor(inp["images"][rank * PIPE_BATCH:
+                                         (rank + 1) * PIPE_BATCH], device=dev)
+    step(imgs)                                        # warm-up
+    align()
+    t0 = time.perf_counter()
+    feats = step(imgs)
+    torch.cuda.synchronize()
+    out["ext_ms"] = (time.perf_counter() - t0) * 1e3
+    out.update({f"ext_{k}": v.cpu().numpy()
+                for k, v in feats._asdict().items()})
+
+    desc = inp["desc"].astype(np.float32)
+    pad = (-len(desc)) % 2
+    db = np.concatenate([desc, np.full((pad, 128), 1e6, np.float32)])
+    q = np.concatenate([desc, np.zeros((pad, 128), np.float32)])
+    half = len(db) // 2
+    qs, ds = (torch.as_tensor(a[rank * half:(rank + 1) * half], device=dev)
+              for a in (q, db))
+    ring = lambda: ring_knn2(qs, ds, group)
+    out["ring_ms"] = timed(ring, 3)
+    m = ring()
+    out.update({f"ring_{k}": v.cpu().numpy() for k, v in m._asdict().items()})
+
+    per_image = [inp["desc"][inp["img_id"] == b] for b in range(BATCH)]
+    index = build_index(per_image)
+    out["votes"] = np.stack([sharded_query_votes(group, index, per_image[b],
+                                                 device=dev)
+                             for b in range(4)])
+
+    p = ba_line_scene(BA_POINTS[1], dev)
+    for run in range(2):
+        sol, err = ba.ba_solve_sharded(p, mesh=group, iterations=8)
+        out.update({f"ba{run}_rvec": sol.cam_rvec.cpu().numpy(),
+                    f"ba{run}_tvec": sol.cam_tvec.cpu().numpy(),
+                    f"ba{run}_points": sol.points.cpu().numpy(),
+                    f"ba{run}_err": np.float64(err)})
+    tracks = ba.problem_to_tracks(p, pad_points_multiple=2)[0]
+    pl = tracks.points.shape[0] // 2
+    mine = slice(rank * pl, (rank + 1) * pl)
+    local = tracks._replace(points=tracks.points[mine],
+                            cam_t=tracks.cam_t[mine],
+                            uv_t=tracks.uv_t[mine], w_t=tracks.w_t[mine])
+    segs = ba.tracks_segments(local)
+    align()
+    out["lm_step_ms"] = timed(
+        lambda: ba._tracks_lm_step(local, 1e-3, True, segs, group), 5)
+    np.savez(out_path, **out)
+    torch.distributed.destroy_process_group()
+
+
+def _join(procs, timeout_s: float) -> list:
+    """Exit codes of spawned processes after at most timeout_s each; one
+    still running is killed (its code is then negative)."""
+    codes = []
+    for p in procs:
+        p.join(timeout_s)
+        if p.is_alive():
+            p.kill()
+            p.join(30)
+        codes.append(p.exitcode)
+    return codes
+
+
+def phase_multidevice(images_np, dense, cfg, dev, card: str) -> dict:
+    """Phase 10, the multi-device slice at full width on one card.
+
+    (a) extraction_step_staged on the 16 bench images with bench.py's
+    bucket table (per-image cap 1024, batch 16): launches counted, image
+    0 gated against a CPU run, and phase 5's grouped output held against
+    it with bench.py's verify thresholds.  (b) PipelinedExtractor with
+    both stages on this card (a stream each) over two microbatches of 8,
+    each equal to the staged step of its microbatch; walls of the
+    pipeline and of two sequential staged calls.  (c) a one-rank NCCL
+    group in this process: sharded_extraction_step, ring_knn2 on phase
+    5's descriptors and ba_solve_sharded on the 50 x 10,000 track scene
+    bit-equal to their single-device forms.  (d) two gloo ranks sharing
+    the card (spawned): the sharded step image by image against (a),
+    ring_knn2 against knn2 (bit-equal but at ties), sharded_query_votes
+    against query_votes, ba_solve_sharded against mesh=None and itself;
+    then the drop-host protocol (tests/_torch_drophost_worker.py): rank
+    1 wedges at round 1 of 3, rank 0 exits 17 after its barrier's
+    timeout, the missing rounds are recomputed with knn2 and the union
+    equals a dense run.  NCCL between separate cards is not run: one
+    card takes one NCCL rank.  Returns (a)'s launches.
+    """
+    import torch
+
+    from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.geom import ba
+    from hesaff_tpu_torch.match import knn2, ring_knn2
+    from hesaff_tpu_torch.utils.fleet import host_barrier
+
+    sys.path.insert(0, TESTS)
+    import _torch_drophost_worker as dw
+    from _torch_scenes import ba_line_scene
+
+    # (a) the staged bucket step
+    buckets = dist.default_bucket_spec(HEIGHT, WIDTH, cfg,
+                                       per_image_cap=1024, batch=BATCH)
+    images = torch.as_tensor(images_np, device=dev)
+    dist.extraction_step_staged(images, cfg, buckets)     # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    staged = dist.extraction_step_staged(images, cfg, buckets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    v = staged.valid
+    n_valid, overflow = int(v.sum()), int(staged.overflow)
+    check_dense_launches(launches, cfg, "staged")
+    check(launches["patches_group"] == len(buckets),
+          f"staged: K5 launched {launches['patches_group']} times, not once "
+          f"a bucket ({len(buckets)})")
+    check(all(bool(torch.isfinite(getattr(staged, k)[v]).all())
+              for k in _FEATURE_FIELDS), "staged: non-finite fields")
+    check(staged.desc.dtype == torch.uint8
+          and tuple(staged.desc.shape) == (v.numel(), 128),
+          "staged: descriptor shape/type")
+    log(f"phase 10 staged bucket step {BATCH}x{HEIGHT}x{WIDTH}, "
+        f"{len(buckets)} buckets up to {buckets[-1][0]} at full resolution: "
+        f"{n_valid} valid descriptors in {v.numel()} slots, overflow "
+        f"{overflow}, wall {wall * 1e3:.1f} ms after one warm-up on {card}; "
+        f"launches {launches}")
+    cpu_buckets = dist.default_bucket_spec(HEIGHT, WIDTH, cfg,
+                                           per_image_cap=1024, batch=1)
+    t0 = time.perf_counter()
+    cpu = dist.extraction_step_staged(images_np[:1], cfg, cpu_buckets,
+                                      device="cpu")
+    log(f"  CPU plain staged run of image 0: {time.perf_counter() - t0:.1f}"
+        f" s, overflow {int(cpu.overflow)}")
+    check(overflow == int(cpu.overflow),
+          f"staged: overflow {overflow}, CPU run {int(cpu.overflow)}")
+    _gate(_image_features(staged, 0), _image_features(cpu, 0),
+          "phase 10 staged")
+    _verify(dense, staged, "phase 10 grouped (phase 5) against staged")
+
+    # (b) the pipeline, both stages on this card
+    b8 = dist.default_bucket_spec(HEIGHT, WIDTH, cfg, per_image_cap=1024,
+                                  batch=PIPE_BATCH)
+    mbs = [images_np[:PIPE_BATCH], images_np[PIPE_BATCH:]]
+    pipe = dist.PipelinedExtractor(cfg, b8, devices=[dev, dev])
+    list(pipe(mbs))                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = list(pipe(mbs))
+    torch.cuda.synchronize()
+    wall_pipe = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs = [dist.extraction_step_staged(mb, cfg, b8, device=dev)
+            for mb in mbs]
+    torch.cuda.synchronize()
+    wall_seq = time.perf_counter() - t0
+    for k, (out, ref) in enumerate(zip(outs, refs)):
+        rv = ref.valid
+        err = max(float((getattr(out, f)[rv] - getattr(ref, f)[rv]).abs()
+                        .max()) for f in _FEATURE_FIELDS)
+        check(bool(torch.equal(out.valid, rv)) and err <= 1e-5
+              and bool(torch.equal(out.desc[rv], ref.desc[rv]))
+              and int(out.overflow) == int(ref.overflow),
+              f"pipeline: microbatch {k} differs from the staged step "
+              f"(field error {err})")
+    log(f"  PipelinedExtractor, stages A and B on {dev} (a stream each), 2 "
+        f"microbatches of {PIPE_BATCH}: equal to the staged step (valid, "
+        f"fields within 1e-5, descriptors, overflow); wall "
+        f"{wall_pipe * 1e3:.1f} ms, two sequential staged calls "
+        f"{wall_seq * 1e3:.1f} ms (host clock, after a warm-up; a record)")
+
+    # (c) a one-rank NCCL group in this process
+    descs = dense.desc[dense.valid].to(torch.float32)
+    dense_nn = knn2(descs, descs)
+    scene = ba_line_scene(BA_POINTS[1], dev)
+    sol0, err0 = ba.ba_solve_sharded(scene, iterations=8)
+    dist.init_multihost(f"localhost:{_free_port()}", 1, 0)
+    try:
+        group = dist.make_mesh()
+        sh = dist.sharded_extraction_step(group, cfg, buckets)(images)
+        same_ext = all(bool(torch.equal(a, b)) for a, b in zip(sh, staged))
+        same_ring = all(bool(torch.equal(a, b))
+                        for a, b in zip(ring_knn2(descs, descs, group),
+                                        dense_nn))
+        sol1, err1 = ba.ba_solve_sharded(scene, mesh=group, iterations=8)
+        same_ba = err1 == err0 and all(
+            bool(torch.equal(getattr(sol1, k), getattr(sol0, k)))
+            for k in ("cam_rvec", "cam_tvec", "points"))
+        backend = torch.distributed.get_backend(group)
+        host_barrier("phase 10 nccl", timeout_s=DROP_TIMEOUT_S)
+    finally:
+        torch.distributed.destroy_process_group()
+    check(same_ext, "NCCL: the sharded step differs from the unsharded one")
+    check(same_ring, "NCCL: ring_knn2 differs from knn2")
+    check(same_ba, "NCCL: ba_solve_sharded differs from mesh=None")
+    log(f"  one-rank {backend} group on {dev}: sharded_extraction_step equal "
+        f"to the staged step: {same_ext}; ring_knn2 {len(descs)}^2 bit-equal "
+        f"to knn2: {same_ring}; ba_solve_sharded 50 x {BA_POINTS[1]} "
+        f"bit-equal to mesh=None: {same_ba} (rmse {err1:.5f}); "
+        f"host_barrier on its gloo side group passed")
+
+    # (d) two gloo ranks sharing the card
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    in_path = os.path.join(out_dir, "phase10_in.npz")
+    vv = dense.valid.cpu().numpy()
+    np.savez(in_path, images=images_np, desc=dense.desc.cpu().numpy()[vv],
+             img_id=dense.img_idx.cpu().numpy()[vv])
+    paths = [os.path.join(out_dir, f"phase10_rank{r}.npz") for r in range(2)]
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_phase10_rank, args=(r, port, in_path,
+                                                     paths[r]))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    codes = _join(procs, 300)
+    log(f"  two gloo ranks on {dev}: exit codes {codes}, "
+        f"{time.perf_counter() - t0:.1f} s with their start-up")
+    check(codes == [0, 0], f"gloo ranks exited {codes}")
+    if codes == [0, 0]:
+        _check_gloo_ranks([dict(np.load(path)) for path in paths], staged,
+                          descs, dense_nn, sol0, err0, in_path, dev)
+
+    ddir = os.path.join(out_dir, "drophost")
+    os.makedirs(ddir, exist_ok=True)
+    for f in os.listdir(ddir):
+        os.remove(os.path.join(ddir, f))
+    port = _free_port()
+    procs = [ctx.Process(target=dw.run, args=(r, 2, port, ddir, 3, 1,
+                                               "cuda:0", DROP_TIMEOUT_S))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    code0 = _join(procs[:1], 120)[0]
+    detect_s = time.perf_counter() - t0
+    procs[1].kill()                                # the wedged host
+    code1 = _join(procs[1:], 30)[0]
+    check(code0 == 17, f"drop-host: rank 0 exited {code0}, not 17")
+    cursor = {}
+    if os.path.exists(os.path.join(ddir, "cursor_0.json")):
+        with open(os.path.join(ddir, "cursor_0.json")) as f:
+            cursor = json.load(f)
+    check(cursor == {"completed": 1, "detected_drop_at": 1},
+          f"drop-host: cursor {cursor}")
+    same = True
+    for r in range(3):
+        q, db = dw.round_data(r, 2)
+        want = knn2(q, db, device=dev).idx.cpu().numpy()
+        if r < cursor.get("completed", 0):
+            got = np.concatenate([np.load(os.path.join(
+                ddir, f"round{r}_shard{k}.npy")) for k in range(2)])
+        else:                                      # the restarted job
+            got = knn2(q, db, device=dev).idx.cpu().numpy()
+        same &= bool(np.array_equal(got, want))
+    check(same, "drop-host: the restarted union differs from a dense run")
+    log(f"  drop-host, 3 rounds of ring_knn2 on {dev}, rank 1 wedged at "
+        f"round 1: rank 0 exit {code0} after {detect_s:.1f} s (start-up "
+        f"and a {DROP_TIMEOUT_S:.0f} s barrier), rank 1 killed ({code1}); "
+        f"cursor {cursor}; restarted union equal to dense knn2: {same}")
+    return launches
+
+
+def _check_gloo_ranks(res, staged, descs, dense_nn, sol0, err0, in_path,
+                      dev) -> None:
+    """Phase 10 (d)'s results of the two gloo ranks against the
+    single-rank forms."""
+    import torch
+
+    from hesaff_tpu_torch.retrieval import build_index, query_votes
+
+    keys = [k for k in res[0] if not k.endswith("_ms")]
+    check(all(np.array_equal(res[1][k], res[0][k]) for k in keys
+              if k.startswith(("ext_", "votes", "ba"))),
+          "gloo: the ranks' gathered results differ")
+    r0 = res[0]
+    ref = {k: getattr(staged, k).cpu().numpy() for k in staged._fields}
+    worst, same_img = 0.0, True
+    for b in range(BATCH):
+        mg = r0["ext_valid"] & (r0["ext_img_idx"] == b)
+        mr = ref["valid"] & (ref["img_idx"] == b)
+        if mg.sum() != mr.sum():
+            same_img = False
+            continue
+        for f in _FEATURE_FIELDS:
+            worst = max(worst, float(np.abs(r0[f"ext_{f}"][mg]
+                                            - ref[f][mr]).max(initial=0)))
+        same_img &= bool(np.array_equal(r0["ext_desc"][mg], ref["desc"][mr])
+                         and np.array_equal(r0["ext_type"][mg],
+                                            ref["type"][mr]))
+    check(same_img and worst <= 1e-5,
+          f"gloo: the sharded step differs from (a) (field error {worst})")
+    check(int(r0["ext_overflow"]) == int(ref["overflow"]),
+          f"gloo: overflow {int(r0['ext_overflow'])} against "
+          f"{int(ref['overflow'])}")
+    log(f"  sharded_extraction_step, {PIPE_BATCH} images a rank: every "
+        f"image's keypoints equal to (a)'s (count, descriptors, type; "
+        f"fields within {worst:g} <= 1e-5): {same_img}; overflow summed "
+        f"{int(r0['ext_overflow'])}; wall {r0['ext_ms']:.1f} / "
+        f"{res[1]['ext_ms']:.1f} ms (ranks 0 / 1)")
+
+    M = len(descs)
+    got = [np.concatenate([r[f"ring_{k}"] for r in res])[:M]
+           for k in ("idx", "dist", "dist2")]
+    want = [t.cpu().numpy() for t in dense_nn]
+    ties = want[1] == want[2]
+    same_d = all(np.array_equal(g, w) for g, w in zip(got[1:], want[1:]))
+    same_i = bool(np.array_equal(got[0][~ties], want[0][~ties]))
+    check(same_d and same_i, "gloo: ring_knn2 differs from knn2 off ties")
+    log(f"  ring_knn2 {M} x {M} over 2 ranks: dist / dist2 bit-equal to "
+        f"knn2: {same_d}; idx equal off ties: {same_i}; {int(ties.sum())} "
+        f"ties (dist == dist2), {int((got[0] != want[0])[ties].sum())} of "
+        f"them answered by another equal row (the ring keeps the shard it "
+        f"visits first)")
+
+    inp = np.load(in_path)
+    per_image = [inp["desc"][inp["img_id"] == b] for b in range(BATCH)]
+    index = build_index(per_image)
+    want_v = np.stack([query_votes(index, per_image[b], device=dev)[0]
+                       for b in range(4)])
+    check(np.array_equal(r0["votes"], want_v),
+          "gloo: sharded_query_votes differ from query_votes")
+    log(f"  sharded_query_votes of images 0-3 over {BATCH} images: equal to "
+        f"query_votes: {np.array_equal(r0['votes'], want_v)}")
+
+    h = lambda t: t.cpu().numpy()
+    twice = all(np.array_equal(r0[f"ba0_{k}"], r0[f"ba1_{k}"])
+                for k in ("rvec", "tvec", "points", "err"))
+    off = lambda k, f: float(np.abs(r0[f"ba0_{k}"]
+                                    - h(getattr(sol0, f))).max())
+    e_rot, e_tr = off("rvec", "cam_rvec"), off("tvec", "cam_tvec")
+    e_pts = off("points", "points")
+    err = float(r0["ba0_err"])
+    check(twice, "gloo: two sharded BA runs differ")
+    # tests/test_geom.py's bounds: rotations within 8e-3, points 6e-2
+    check(abs(err - err0) <= 0.02 and e_rot <= 8e-3 and e_pts <= 6e-2,
+          f"gloo: sharded BA rmse {err} (mesh=None {err0}), rotations off "
+          f"by {e_rot}, points by {e_pts}")
+    log(f"  ba_solve_sharded 50 x {BA_POINTS[1]} over 2 ranks: rmse "
+        f"{err:.5f} (mesh=None {err0:.5f}, within 0.02), rotations within "
+        f"{e_rot:.2e} (<= 8e-3), points within {e_pts:.2e} (<= 6e-2), "
+        f"translations within {e_tr:.2e}; two runs bit-equal: {twice}")
+    log(f"  times, host-staged through gloo on one card: ring pass "
+        f"{M}^2 {r0['ring_ms']:.3f} / {res[1]['ring_ms']:.3f} ms (ranks 0 / "
+        f"1, CUDA events, 3 passes) against knn2 {notes.get('knn2_ms', 0):.3f}"
+        f" ms (phase 7); sharded LM step {r0['lm_step_ms']:.3f} ms against "
+        f"{notes.get('track_step_ms', 0):.3f} ms on one rank (phase 9); "
+        f"sharded extraction wall {r0['ext_ms']:.1f} ms")
 
 
 _SPANS = ("phase A", "group ", "direct branch", "SIFT")
@@ -1746,10 +2206,13 @@ def main() -> int:
     launches["6"] = run("6", phase_large, large_np, cfg, dev)
     launches["7"] = run("7", phase_after, images_np, dense, dense_cpu0, cfg,
                         dev, card)
-    del dense, dense_cpu0
+    del dense_cpu0
     launches["8"] = run("8", phase_fleet, fleet_rgb, large_np, cfg, dev,
                         card)
     run("9", phase_geometry, dev, card)
+    launches["10"] = run("10", phase_multidevice, images_np, dense, cfg, dev,
+                         card)
+    del dense
     log("  phase walls (s): "
         + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     if failures:

@@ -1,4 +1,4 @@
-"""Schur-complement bundle adjustment (Levenberg-Marquardt), one device.
+"""Schur-complement bundle adjustment (Levenberg-Marquardt).
 
 Port of ``hesaff_tpu/geom/ba.py`` on tensors of any device, in float32
 with TF32 off (``match.full_f32``) around every product and solve:
@@ -11,10 +11,10 @@ with TF32 off (``match.full_f32``) around every product and solve:
     ``ba_solve`` keeps the camera-point coupling E dense as (C, P, 6, 3)
     and reduces S = B - E D^-1 E^T with two einsums; the reduced
     (6C x 6C) system is solved dense;
-  * the track form (``ba_solve_sharded`` with ``mesh=None``) groups the
-    observations per point (BATracks), so memory is O(observations)
-    instead of C * P.  Its process-group form belongs to the
-    multi-device port.
+  * the track form (``ba_solve_sharded``) groups the observations per
+    point (BATracks), so memory is O(observations) instead of C * P;
+    over a process group the points and their tracks are sharded and
+    each LM step all-reduces the partial reduced camera system.
 
 The JAX package sums observations with ``.at[].add``, a scatter-add.
 On a GPU ``index_add_`` sums with atomics in an arbitrary order, so an
@@ -31,8 +31,10 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 from torch.func import jacfwd, vmap
 
+from hesaff_tpu_torch import comm
 from hesaff_tpu_torch.geom.se3 import so3_exp
 from hesaff_tpu_torch.match import full_f32
 from hesaff_tpu_torch.pipeline import resolve_device
@@ -382,10 +384,35 @@ def _tracks_rmse_parts(tr: BATracks):
         return torch.sum(torch.sum(r * r, dim=1) * w), torch.sum(w)
 
 
-def _tracks_lm_step(tr: BATracks, lam, fix_first_cam: bool, segs=None):
-    """One LM step on track-layout data: (new tracks, rmse)."""
+def _reduce_parts(parts, group):
+    """The sum over the group of each rank's (Hcc, gc, Soff, rhs_corr):
+    one all_reduce of the four, flattened in that order."""
+    flat = comm.all_reduce_sum(torch.cat([t.reshape(-1) for t in parts]),
+                               group)
+    sizes = [t.numel() for t in parts]
+    return tuple(x.reshape(t.shape)
+                 for x, t in zip(flat.split(sizes), parts))
+
+
+def _tracks_rmse(tr: BATracks, group=None):
+    """Reprojection rmse of the tracks, over the group's shards."""
+    sq, wsum = _tracks_rmse_parts(tr)
+    if group is not None:
+        sq, wsum = comm.all_reduce_sum(torch.stack([sq, wsum]),
+                                       group).unbind()
+    return torch.sqrt(sq / torch.clamp_min(wsum, 1.0))
+
+
+def _tracks_lm_step(tr: BATracks, lam, fix_first_cam: bool, segs=None,
+                    group=None):
+    """One LM step on track-layout data: (new tracks, rmse).  Over a
+    process group, tr holds this rank's points and the partials and
+    the rmse are summed over the group; the cameras and the reduced
+    solve are the same on every rank."""
     with full_f32():
         parts, (Dinv, E_t, gp) = _tracks_partials(tr, lam, segs)
+        if group is not None:
+            parts = _reduce_parts(parts, group)
         dc = _reduced_solve(*parts, lam, fix_first_cam)
         # back-substitute: dp = -Dinv (gp + sum_t E_t^T dc[cam_t])
         Etdc = torch.einsum("ptij,pti->pj", E_t, dc[tr.cam_t.long()])
@@ -393,8 +420,7 @@ def _tracks_lm_step(tr: BATracks, lam, fix_first_cam: bool, segs=None):
     new = tr._replace(cam_rvec=tr.cam_rvec + dc[:, :3],
                       cam_tvec=tr.cam_tvec + dc[:, 3:],
                       points=tr.points + dp)
-    sq, wsum = _tracks_rmse_parts(new)
-    return new, torch.sqrt(sq / torch.clamp_min(wsum, 1.0))
+    return new, _tracks_rmse(new, group)
 
 
 def _lm_loop(step, state, err: float, iterations: int, lam0: float,
@@ -418,28 +444,47 @@ def _lm_loop(step, state, err: float, iterations: int, lam0: float,
 def ba_solve_sharded(p: BAProblem, mesh=None, iterations: int = 20,
                      lam0: float = 1e-3, fix_first_cam: bool = True,
                      track_cap: int | None = None, verbose: bool = False):
-    """Track-layout Schur BA on one device: the O(observations)
-    replacement for the dense-E `ba_solve` (the JAX package's
-    ``ba_solve_sharded(p, mesh=None)``).  Over a process group it
-    belongs to the multi-device port: a mesh is refused.
+    """Track-layout Schur BA, on one device or over a process group.
+
+    mesh=None: the track form on p's device, the O(observations)
+    replacement for the dense-E `ba_solve`.  mesh: a process group
+    (dist.make_mesh) whose every rank calls this with the same problem:
+    the points, padded to a multiple of the group's size, and their
+    tracks are split into equal shards, rank r taking the r-th; the
+    cameras are replicated.  Each LM step sums the rank's share of the
+    reduced camera system through `Segments` and all-reduces the four
+    partials in one collective, solves the (6C x 6C) system on every
+    rank, back-substitutes the rank's points, and all-reduces the rmse's
+    two sums, so every rank takes the same accept / reject.  At the end
+    the points are gathered to every rank.  Communication is O(C^2) a
+    step, whatever the point count.  Over a group of one rank the
+    result is bit-equal to mesh=None's.
 
     Returns (BAProblem with refined parameters, final rmse).
     """
-    if mesh is not None:
-        raise ValueError("ba_solve_sharded: only the single-device form "
-                         "(mesh=None) is ported")
-    tracks, dropped = problem_to_tracks(p, track_cap=track_cap)
+    if mesh is not None and not isinstance(mesh, tdist.ProcessGroup):
+        raise ValueError("ba_solve_sharded: mesh must be a process group "
+                         "(dist.make_mesh), or mesh=None for one device")
+    r, n = (0, 1) if mesh is None else comm.rank_and_size(mesh)
+    tracks, dropped = problem_to_tracks(p, track_cap=track_cap,
+                                        pad_points_multiple=n)
     if verbose and dropped:
         print(f"BA tracks: dropped {dropped} observations over track cap")
     P = int(p.points.shape[0])
+    Pl = tracks.points.shape[0] // n
+    mine = slice(r * Pl, (r + 1) * Pl)
+    tracks = tracks._replace(
+        points=tracks.points[mine], cam_t=tracks.cam_t[mine],
+        uv_t=tracks.uv_t[mine], w_t=tracks.w_t[mine])
     segs = tracks_segments(tracks)
-    sq, wsum = _tracks_rmse_parts(tracks)
-    err = float(torch.sqrt(sq / torch.clamp_min(wsum, 1.0)))
+    err = float(_tracks_rmse(tracks, mesh))
     tracks, err = _lm_loop(
-        lambda tr, lam: _tracks_lm_step(tr, lam, fix_first_cam, segs),
+        lambda tr, lam: _tracks_lm_step(tr, lam, fix_first_cam, segs, mesh),
         tracks, err, iterations, lam0, 1e-9, verbose, "BA[tracks]")
+    points = (tracks.points if mesh is None
+              else comm.all_gather_cat(tracks.points, mesh))
     return p._replace(cam_rvec=tracks.cam_rvec, cam_tvec=tracks.cam_tvec,
-                      points=tracks.points[:P]), err
+                      points=points[:P]), err
 
 
 def ba_solve(p: BAProblem, iterations: int = 20, lam0: float = 1e-3,

@@ -1,7 +1,7 @@
-"""Descriptor matching: exact blocked 2-NN and Lowe-ratio matching.
+"""Descriptor matching: exact blocked 2-NN, Lowe-ratio matching and the
+ring 2-NN over a process group.
 
-Port of ``hesaff_tpu/match.py`` (``ring_knn2`` waits for the
-multi-device slice).  Distances use the factorized form
+Port of ``hesaff_tpu/match.py``.  Distances use the factorized form
 ||a-b||^2 = |a|^2 + |b|^2 - 2 a.b, so the O(N*M*128) term is one
 float32 matrix product per column block (``torch.addmm_``, TF32 off for
 the call); the running (best, second-best) merge over blocks never
@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from hesaff_tpu_torch import comm
 from hesaff_tpu_torch.pipeline import resolve_device
 
 
@@ -81,13 +82,50 @@ def knn2(query, db, block: int = 4096, device=None) -> Matches:
             if dbs.shape[0] < block:
                 dbs = torch.cat([dbs, dbs.new_full(
                     (block - dbs.shape[0], d.shape[1]), 1e6)])
-            i1, d1, d2 = _topk2_block(q, dbs, b * block)
-            # merge two (best, second) summaries
-            new_best = d1 < bd1
-            bd2 = torch.where(new_best, torch.minimum(bd1, d2),
-                              torch.minimum(bd2, d1))
-            bd1 = torch.where(new_best, d1, bd1)
-            bi = torch.where(new_best, i1, bi)
+            bi, bd1, bd2 = _merge(bi, bd1, bd2,
+                                  *_topk2_block(q, dbs, b * block))
+    return Matches(idx=bi, dist=bd1, dist2=bd2)
+
+
+def _merge(bi, bd1, bd2, i1, d1, d2):
+    """Merge two (best, second) summaries; a strict < keeps the first."""
+    new_best = d1 < bd1
+    bd2 = torch.where(new_best, torch.minimum(bd1, d2),
+                      torch.minimum(bd2, d1))
+    return (torch.where(new_best, i1, bi), torch.where(new_best, d1, bd1),
+            bd2)
+
+
+def ring_knn2(query_local, db_local, group, device=None) -> Matches:
+    """2-NN where both the queries and the database are sharded over a
+    process group (the JAX package's ring_knn2 under shard_map).
+
+    Every rank holds a query shard and a database shard of one size
+    (the caller pads, as sharded_query_votes does).  In n steps the
+    database shards go around the ring: at step k rank r compares its
+    queries with the shard of rank (r - k) mod n (its own first), whose
+    rows start at owner * shard, over the whole shard at once, merges
+    the running (best, second) with a strict < (the first shard visited
+    wins a tie, as in JAX's ring; dense knn2 keeps the lowest index),
+    and passes the shard on to rank r + 1 (comm.ring_shift).  Runs on
+    `device` (default: the query tensor's, or the GPU).  Returns the
+    rank's Matches, indices into the whole database.
+    """
+    dev = resolve_device(query_local, device)
+    q = torch.as_tensor(query_local, device=dev).to(torch.float32)
+    db = torch.as_tensor(db_local, device=dev).to(torch.float32)
+    r, n = comm.rank_and_size(group)
+    shard = db.shape[0]
+    bi = torch.zeros(q.shape[0], dtype=torch.int32, device=dev)
+    bd1 = torch.full((q.shape[0],), float("inf"), device=dev)
+    bd2 = torch.full((q.shape[0],), float("inf"), device=dev)
+    with full_f32():
+        for k in range(n):
+            owner = (r - k) % n
+            bi, bd1, bd2 = _merge(bi, bd1, bd2,
+                                  *_topk2_block(q, db, owner * shard))
+            if k < n - 1:
+                db = comm.ring_shift(db, group)
     return Matches(idx=bi, dist=bd1, dist2=bd2)
 
 

@@ -86,7 +86,7 @@ def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
                  K, cuda_build.ptr(mask), G, win, cfg.max_iterations,
                  cfg.convergence_threshold, cfg.anisotropy_max,
                  *(cuda_build.ptr(t) for t in (ok, u, iters, counter)),
-                 cuda_build.stream())
+                 cuda_build.stream(dev))
     cuda_build.check(err, "affine_adapt")
     LAUNCHES += 1
     return AffineResult(ok=ok.bool(), u11=u[:, 0], u12=u[:, 1],

@@ -114,6 +114,6 @@ def _launch(img, taps, norm2: float, out, resp_out):
         err = fn(cuda_build.ptr(img), in_stride, cuda_build.ptr(out),
                  None if resp_out is None else cuda_build.ptr(resp_out),
                  out_stride, n, H, W, host_taps, k, norm2,
-                 cuda_build.stream())
+                 cuda_build.stream(img.device))
     cuda_build.check(err, "blur_doh")
     LAUNCHES += 1

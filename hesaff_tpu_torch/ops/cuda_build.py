@@ -105,7 +105,9 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
+def stream(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on `device`, the device of the tensors a
+    kernel launches on (not the process's current device)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -165,7 +165,7 @@ def _launch_maps(low, cur, high, cfg, valid_hw):
                  *(cuda_build.ptr(t) for t in (maps, *flags)), vhw_ptr,
                  N, H, W, cfg.border, cfg.positive_threshold,
                  cfg.negative_threshold, cfg.edge_score_threshold,
-                 cuda_build.stream())
+                 cuda_build.stream(dev))
     cuda_build.check(err, "detect_maps")
     MAPS_LAUNCHES += 1
     return (maps, *flags)
@@ -202,7 +202,7 @@ def _launch(resps, blurs, cfg, valid_hw):
                  cfg.negative_threshold, cfg.edge_score_threshold,
                  cfg.max_subpixel_shift, cfg.point_safety_border,
                  cfg.localize_iterations, cfg.final_shift_limit,
-                 cfg.final_threshold, cuda_build.stream())
+                 cfg.final_threshold, cuda_build.stream(dev))
     cuda_build.check(err, "detect_walk_octave")
     LAUNCHES += 1
     return ok.bool(), cell, tab, cand.bool()

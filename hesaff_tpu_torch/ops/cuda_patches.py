@@ -156,7 +156,7 @@ def _launch(src, img_idx, x, y, a11, a21, a22, ws, its, taps, active, P):
         err = fn(cuda_build.ptr(src), B, H, W,
                  *(cuda_build.ptr(t) for t in args), kmax, K, P,
                  cuda_build.ptr(out), cuda_build.ptr(bad),
-                 cuda_build.stream())
+                 cuda_build.stream(dev))
     cuda_build.check(err, "patches_group")
     LAUNCHES += 1
     return out, bad.bool()

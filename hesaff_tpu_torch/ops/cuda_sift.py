@@ -95,7 +95,7 @@ def _launch(patches: torch.Tensor, valid, cfg):
                  cuda_build.ptr(valid) if u8 else None, K, P,
                  cuda_build.ptr(circ), cuda_build.ptr(spatial), sb, ob,
                  _n_support(P), cfg.max_bin_value, int(u8),
-                 cuda_build.ptr(out), cuda_build.stream())
+                 cuda_build.ptr(out), cuda_build.stream(dev))
     cuda_build.check(err, "sift_desc")
     LAUNCHES += 1
     return out

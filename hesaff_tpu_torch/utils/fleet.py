@@ -14,13 +14,16 @@ table cached per shape, batch, capacity and configuration), whose
 results stay on the card while the previous chunk is copied out and
 written; on the CPU batch.extract_batch with valid_hw.  A grouped
 chunk whose fixed capacities overflowed reruns through extract_batch,
-which has none to overflow.  The multi-host liveness barrier
-(``host_barrier``) belongs to the multi-device port and is not here.
+which has none to overflow.  In a multi-host job each host runs
+extract_fleet on its own slice (dist.host_shard), and ``host_barrier``
+before each collective round turns a dropped peer into
+``HostDropError``.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import datetime
 import json
 import os
 import traceback
@@ -43,6 +46,53 @@ def _default_loader(path: str) -> np.ndarray:
 
 class HostDropError(RuntimeError):
     """A peer host failed to reach the liveness barrier (died/wedged)."""
+
+
+# the world group -> the gloo group host_barrier runs on (the world group
+# itself under gloo; a side group made once under NCCL)
+_BARRIER_GROUPS: dict = {}
+
+
+def barrier_group():
+    """The gloo group of host_barrier for the current process group.
+    Under NCCL it is a side group of the same ranks, made on the first
+    call, which every rank must make (dist.init_multihost does), while
+    no peer can have dropped yet."""
+    import torch.distributed as tdist
+
+    world = tdist.group.WORLD
+    if tdist.get_backend(world) == "gloo":
+        return world
+    if world not in _BARRIER_GROUPS:
+        _BARRIER_GROUPS[world] = tdist.new_group(backend="gloo")
+    return _BARRIER_GROUPS[world]
+
+
+def host_barrier(name: str, timeout_s: float = 60.0) -> None:
+    """Liveness barrier of a multi-host job, called before each
+    collective round.
+
+    A collective with a dead or wedged peer waits for it without end;
+    this barrier is no device collective, so it cannot hang past its
+    timeout: torch.distributed.monitored_barrier on a gloo group
+    (barrier_group), where rank 0 waits for every other rank's arrival
+    for timeout_s.  Any failure raises HostDropError, so the survivors
+    can checkpoint and the job restart on the hosts that remain (the
+    recovery protocol of tests/_torch_drophost_worker.py).  A no-op
+    without a process group.
+    """
+    import torch.distributed as tdist
+
+    if not (tdist.is_available() and tdist.is_initialized()):
+        return
+    try:
+        tdist.monitored_barrier(
+            barrier_group(), timeout=datetime.timedelta(seconds=timeout_s),
+            wait_all_ranks=True)
+    except RuntimeError as e:  # any failure of the barrier is a lost peer
+        raise HostDropError(
+            f"liveness barrier {name!r} failed after {timeout_s} s "
+            f"(peer host dropped?): {e}") from e
 
 
 def pad_to_bucket(img: np.ndarray, multiple: int = 64):

@@ -67,3 +67,38 @@ def assert_affine_parity(ref, out, act, budget: float = 0.02,
         np.testing.assert_allclose(n(getattr(ref, f))[mm],
                                    n(getattr(out, f))[mm],
                                    rtol=1e-4, atol=u_atol)
+
+
+def match_slots(ref, out):
+    """One-to-one map of ref's valid slots to out's (DenseFeatures): same
+    image, x and y within 0.01 px, s within 1e-3 relative."""
+    rv, ov = n(ref.valid).astype(bool), n(out.valid).astype(bool)
+    ri, oi = np.nonzero(rv)[0], np.nonzero(ov)[0]
+    f = lambda d, k: n(getattr(d, k)).astype(np.float64)
+    pairs = {}
+    for i in ri:
+        near = oi[(n(out.img_idx)[oi] == n(ref.img_idx)[i])
+                  & (np.abs(f(out, "x")[oi] - f(ref, "x")[i]) <= 0.01)
+                  & (np.abs(f(out, "y")[oi] - f(ref, "y")[i]) <= 0.01)
+                  & (np.abs(f(out, "s")[oi] - f(ref, "s")[i])
+                     <= 1e-3 * f(ref, "s")[i])]
+        assert len(near) == 1, (i, near)
+        pairs[i] = int(near[0])
+    assert sorted(pairs.values()) == list(oi)
+    return pairs
+
+
+def assert_same_features(ref, out, overflow: int = 0):
+    """The same keypoints (match_slots), descriptors within one step,
+    the same overflow in both (0 unless given), and zero descriptor
+    rows where the port's slot is not valid."""
+    rv, ov = n(ref.valid).astype(bool), n(out.valid).astype(bool)
+    assert rv.sum() == ov.sum() > 20
+    assert int(n(ref.overflow)) == int(n(out.overflow)) == overflow
+    rd, od = n(ref.desc).astype(int), n(out.desc).astype(int)
+    pairs = match_slots(ref, out)
+    for i, j in pairs.items():
+        assert np.abs(rd[i] - od[j]).max() <= 1
+    assert out.desc.dtype == torch.uint8
+    assert not od[~ov].any()
+    return pairs

@@ -28,7 +28,12 @@ unlimited call's), the padded grouped path equal to its CPU run.
 Geometry: an LM step bit-equal across two runs (dense and tracks),
 within rtol 1e-4 / atol 1e-5 of the CPU step; ba_solve and
 incremental_sfm at tests/test_geom.py's and tests/test_sfm.py's
-thresholds.
+thresholds.  Multi-device: the staged bucket step (K5 on every bucket at
+full resolution) against its CPU run (keypoints within 0.01 px,
+descriptors within 2 steps, equal overflow); the pipeline with both
+stages on cuda:0 equal to the staged step (fields within 1e-5); over a
+one-rank NCCL group ring_knn2 and ba_solve_sharded bit-equal to their
+one-device forms.
 """
 
 import os
@@ -871,3 +876,112 @@ def test_incremental_sfm_on_gpu(dev):
     ate = sfm.absolute_trajectory_error(rec.cam_rvec, rec.cam_tvec,
                                         rv_gt, tv_gt)
     assert ate < 0.15 and rec.rmse < 2e-3
+
+
+def _bench_like(B, H, W):
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
+    import gen_images
+
+    return np.stack([
+        gen_images.synth_image(W, H, seed=s).astype(np.float32).mean(-1)
+        for s in range(B)])
+
+
+def test_bucket_step_on_gpu_matches_cpu(dev):
+    """extraction_step_staged on the card (K5 on every bucket at full
+    resolution, 385 and 513 included) against its CPU run: the same
+    keypoints within 0.01 px, descriptors within 2 steps, equal
+    overflow."""
+    from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.ops import cuda_patches
+
+    imgs = _bench_like(2, 480, 640)
+    buckets = dist.default_bucket_spec(480, 640, CFG, per_image_cap=1024,
+                                       batch=2)
+    assert max(b for b, _ in buckets) >= 513
+    before = cuda_patches.LAUNCHES
+    gpu = dist.extraction_step_staged(imgs, CFG, buckets, device=dev)
+    cpu = dist.extraction_step_staged(imgs, CFG, buckets, device="cpu")
+    assert cuda_patches.LAUNCHES - before == len(buckets)
+    gv, cv = gpu.valid.cpu(), cpu.valid
+    assert abs(int(gv.sum()) - int(cv.sum())) <= 1 and int(cv.sum()) > 50
+    assert int(gpu.overflow) == int(cpu.overflow)
+    gi, ci = gpu.img_idx.cpu()[gv].numpy(), cpu.img_idx[cv].numpy()
+    gx, gy = gpu.x.cpu()[gv].numpy(), gpu.y.cpu()[gv].numpy()
+    gd = gpu.desc.cpu()[gv].numpy().astype(int)
+    cd = cpu.desc[cv].numpy().astype(int)
+    for i, (x, y) in enumerate(zip(cpu.x[cv].numpy(), cpu.y[cv].numpy())):
+        d = np.hypot(gx - x, gy - y) + 1e9 * (gi != ci[i])
+        j = int(np.argmin(d))
+        assert d[j] < 0.01
+        assert np.abs(gd[j] - cd[i]).max() <= 2
+
+
+def test_pipeline_on_one_gpu_matches_staged(dev):
+    """PipelinedExtractor with both stages on cuda:0 (a stream each)
+    equal to the staged step of each microbatch: valid equal, fields
+    within 1e-5, descriptors and overflow equal."""
+    from hesaff_tpu_torch import dist
+
+    imgs = _bench_like(4, 240, 320)
+    buckets = dist.default_bucket_spec(240, 320, CFG, per_image_cap=512,
+                                       batch=2)
+    pipe = dist.PipelinedExtractor(CFG, buckets, devices=[dev, dev])
+    batches = [imgs[:2], imgs[2:]]
+    outs = list(pipe(batches))
+    assert len(outs) == 2
+    for mb, out in zip(batches, outs):
+        ref = dist.extraction_step_staged(mb, CFG, buckets, device=dev)
+        assert torch.equal(out.valid, ref.valid)
+        v = ref.valid
+        for f in ("x", "y", "s", "a11", "a21", "a22", "response"):
+            assert float((getattr(out, f)[v] - getattr(ref, f)[v])
+                         .abs().max()) <= 1e-5
+        assert torch.equal(out.desc[v], ref.desc[v])
+        assert int(out.overflow) == int(ref.overflow)
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """A one-rank NCCL process group in this process (TCP store on
+    localhost)."""
+    import socket
+
+    from hesaff_tpu_torch import dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_multihost(f"localhost:{port}", 1, 0)
+    try:
+        yield dist.make_mesh()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_one_rank_nccl_matches_single_device(dev, nccl_group):
+    """Over a one-rank NCCL group ring_knn2 is bit-equal to knn2 on uint8
+    descriptors and ba_solve_sharded to its mesh=None form; host_barrier
+    passes on the group's gloo side group."""
+    from hesaff_tpu_torch.geom import ba
+    from hesaff_tpu_torch.match import knn2, ring_knn2
+    from hesaff_tpu_torch.utils.fleet import barrier_group, host_barrier
+
+    assert torch.distributed.get_backend(nccl_group) == "nccl"
+    assert torch.distributed.get_backend(barrier_group()) == "gloo"
+    host_barrier("nccl", timeout_s=10.0)
+    rng = np.random.default_rng(3)
+    q = torch.as_tensor(rng.integers(0, 256, (3000, 128)), device=dev)
+    db = torch.as_tensor(rng.integers(0, 256, (7000, 128)), device=dev)
+    db[4500] = db[17]
+    ring, dense = ring_knn2(q, db, nccl_group), knn2(q, db)
+    for a, b in zip(ring, dense):
+        assert torch.equal(a, b)
+    p = ba_problem(dev)
+    s1, e1 = ba.ba_solve_sharded(p, mesh=nccl_group, iterations=6)
+    s0, e0 = ba.ba_solve_sharded(p, iterations=6)
+    assert e1 == e0
+    for k in ("cam_rvec", "cam_tvec", "points"):
+        assert torch.equal(getattr(s1, k), getattr(s0, k)), k

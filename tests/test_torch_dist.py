@@ -24,7 +24,7 @@ import pytest
 from hesaff_tpu import dist as jdist
 from hesaff_tpu.config import HesaffConfig
 from hesaff_tpu_torch import dist
-from _torch_parity import n, port_cfg
+from _torch_parity import assert_same_features, n, port_cfg
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "golden"))
@@ -60,36 +60,6 @@ def test_tail_plan_at_bench_size():
     assert dist.tail_source_plan(1025, 1.0) == (4.0, 2, 259)
 
 
-def _match(ref, out):
-    """One-to-one map of ref's valid slots to out's: same image, x and y
-    within 0.01 px, s within 1e-3 relative."""
-    rv, ov = n(ref.valid).astype(bool), n(out.valid).astype(bool)
-    ri, oi = np.nonzero(rv)[0], np.nonzero(ov)[0]
-    f = lambda d, k: n(getattr(d, k)).astype(np.float64)
-    pairs = {}
-    for i in ri:
-        near = oi[(n(out.img_idx)[oi] == n(ref.img_idx)[i])
-                  & (np.abs(f(out, "x")[oi] - f(ref, "x")[i]) <= 0.01)
-                  & (np.abs(f(out, "y")[oi] - f(ref, "y")[i]) <= 0.01)
-                  & (np.abs(f(out, "s")[oi] - f(ref, "s")[i])
-                     <= 1e-3 * f(ref, "s")[i])]
-        assert len(near) == 1, (i, near)
-        pairs[i] = int(near[0])
-    assert sorted(pairs.values()) == list(oi)
-    return pairs
-
-
-def _assert_same_features(ref, out):
-    rv, ov = n(ref.valid).astype(bool), n(out.valid).astype(bool)
-    assert rv.sum() == ov.sum() > 20
-    assert int(n(ref.overflow)) == int(n(out.overflow)) == 0
-    rd, od = n(ref.desc).astype(int), n(out.desc).astype(int)
-    for i, j in _match(ref, out).items():
-        assert np.abs(rd[i] - od[j]).max() <= 1
-    assert out.desc.dtype == dist.torch.uint8
-    assert not od[~ov].any()
-
-
 @pytest.fixture(scope="module")
 def grouped_pair():
     B, H, W = 2, 160, 128
@@ -103,7 +73,7 @@ def grouped_pair():
 
 
 def test_grouped_matches_jax(grouped_pair):
-    _assert_same_features(*grouped_pair)
+    assert_same_features(*grouped_pair)
 
 
 def test_grouped_slot_layout_matches_jax(grouped_pair):
@@ -132,4 +102,4 @@ def test_grouped_upscale_direct_branch_matches_jax_staged():
     ov = n(out.valid).astype(bool)
     S = 2 * np.ceil(n(out.s)[ov] * cfg.mr_size).astype(np.int32) + 1
     assert (S / cfg.patch_size <= cfg.oversample_cutoff).any()
-    _assert_same_features(ref, out)
+    assert_same_features(ref, out)
