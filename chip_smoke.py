@@ -61,13 +61,24 @@ two gloo ranks sharing the card (spawned: the sharded step image by
 image, ring_knn2 bit-equal to knn2 off ties, sharded_query_votes,
 ba_solve_sharded against mesh=None and itself) and the drop-host
 protocol (rank 0 exits 17 after its barrier's timeout, the union of the
-rounds equal to a dense run).  Exits non-zero on any failed phase; on
+rounds equal to a dense run).  Phase 11 runs the HesaffConfigs the
+default path does not: each generic kernel instance against its plain
+version (K5 on bench images 0-3's group table and K6 on its patches at
+patch sides 65, 96 and 128, K6 also at 3 x 3 x 8 and 4 x 4 x 6 bins,
+K1 at 37 and 63 taps, K4 at grids 33 and 63), then, with the counts
+from 0, extract_batch at patch sides 65 and 97 (at 96 it must raise a
+ValueError) and the grouped path at 65 and 96 on images 0-3, extract_batch at initial_sigma 4.0 and at
+smm_window_size 33 on images 0-1 (image 0 of each gated against a CPU
+run; each generic instance must launch there, and none in phases
+1-10), and `cli extract --patch-size 65` on the card and on the CPU,
+the two files gated.  Exits non-zero on any failed phase; on
 success the last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it holds the per-kernel record: launches in one
-phase-6 call (every kernel runs there) and in phases 4, 5, 6, 7, 8 and 10
+phase-6 call (every kernel runs there) and in phases 4, 5, 6, 7, 8, 10
+and 11
 (checked: K1 once a ladder level plus the initial blur, K6 once), max
 abs error against the plain version, the kernel's and the plain
 version's ms (one pair of CUDA events around back-to-back launches, 20
@@ -78,8 +89,11 @@ bound: the larger of the bytes it must move over 3.35 TB/s and the
 float32 operations its function needs over 67 TFLOP/s (H100 SXM data
 sheet), both counted from this run's inputs (K4's operations from the
 steps each keypoint ran in the plain loop).  No single PyTorch call
-computes any of the six functions, so library_ms is null.  There is no
-CPU mode: without a CUDA device the script exits with an error.
+computes any of the six functions, so library_ms is null.  The record
+also holds the four generic instances of phase 11 (K6 and K5 past 64
+px, K1 past 31 taps, K4 past a 31-sample grid) with their launches on
+phase 11's path and their numbers at its shapes (by_shape).  There is
+no CPU mode: without a CUDA device the script exits with an error.
 """
 
 from __future__ import annotations
@@ -124,6 +138,18 @@ FLEET_BIG = (3000, 4000)
 # cameras, 4 observations a point)
 BA_POINTS = (5000, 10000)
 
+# phase 11: configurations other than the default on bench images 0-3
+# (0-1 for the ladder and the affine grid): K5 and K6 at patch sides
+# over 64 px on the group table, K6 at other bin layouts, K1 past 31
+# taps, K4 past a 31-sample grid; extract_batch at patch sides 65 and
+# 97 (at 96 the bucket path raises a ValueError, as the JAX package's
+# does; checked) and the grouped path at 65 and 96
+CFG_IMAGES = 4
+CFG_SIDES = (65, 96, 128)
+CFG_BINS = ((4, 8), (3, 8), (4, 6))
+CFG_TAPS = (37, 63)
+CFG_GRIDS = (33, 63)
+
 KERNELS = (
     # name, source, TPU kernel it replaces
     ("blur_doh", "hesaff_tpu_torch/csrc/blur_doh.cu",
@@ -138,6 +164,16 @@ KERNELS = (
      "hesaff_tpu/ops/pallas_patches.py:521"),
     ("sift_desc", "hesaff_tpu_torch/csrc/sift_desc.cu",
      "hesaff_tpu/ops/pallas_sift.py:171"),
+)
+# the generic instances of phase 11: name, the kernel whose source and
+# TPU kernel they share, wrapper module, launch counter
+GENERIC = (
+    ("sift_desc_generic", "sift_desc", "cuda_sift", "GENERIC_LAUNCHES"),
+    ("patches_group_generic", "patches_group", "cuda_patches",
+     "GENERIC_LAUNCHES"),
+    ("blur_doh_generic", "blur_doh", "cuda_blur", "GENERIC_LAUNCHES"),
+    ("affine_adapt_generic", "affine_adapt", "cuda_affine",
+     "GENERIC_LAUNCHES"),
 )
 # the device kernel of K4's wrapper (torch.profiler's name)
 K4_KERNELS = ("affine_kernel",)
@@ -534,9 +570,10 @@ def octave_adapt_args(images, cfg) -> list:
     return out
 
 
-def phase_affine(images, cfg, rec, card: str) -> None:
+def phase_affine(images, cfg, rec, card: str, label: str = "phase 2",
+                 key: str = "affine_adapt") -> None:
     """K4 against its plain version on every octave's real keypoints,
-    one launch an octave as phase A makes them."""
+    one launch an octave as phase A makes them (rec[key])."""
     from hesaff_tpu_torch.ops import cuda_affine
 
     G = cfg.smm_window_size
@@ -584,35 +621,49 @@ def phase_affine(images, cfg, rec, card: str) -> None:
                          steps=n_steps, longest=longest, ms=kms,
                          call_ms=cms, plain_ms=kpms, flips=flips,
                          iteration_flips=it_flips))
-        log(f"phase 2 affine_adapt octave {oc}: {n_act} active of "
+        log(f"{label} affine_adapt octave {oc}: {n_act} active of "
             f"{act.numel()} slots, {n_steps} steps, longest chain {longest}; "
             f"ok flips {flips}, iteration flips {it_flips} (budget {allow}); "
             f"kernel {kms:.4f} device ms ({cms:.4f} ms a call back to back), "
             f"plain {kpms:.3f} ms")
     check(n_both >= 10, "affine: too few accepted keypoints")
-    log(f"phase 2 affine_adapt, {len(rows)} octaves on {card}: U max err "
+    log(f"{label} affine_adapt, {len(rows)} octaves on {card}: U max err "
         f"{e4:.3g} (rtol 1e-4, atol 5e-5); kernel {ms:.4f} device ms "
         f"({call_ms:.4f} ms a call back to back), plain {pms:.3f} ms (sums "
         "of one call an octave)")
-    rec["affine_adapt"] = dict(max_abs_err=e4, ms=ms, call_ms=call_ms,
-                               plain_ms=pms, octaves=rows, **bound(b4, f4))
+    rec[key] = dict(max_abs_err=e4, ms=ms, call_ms=call_ms, plain_ms=pms,
+                    octaves=rows, **bound(b4, f4))
 
 
 def phase_group_kernels(images, cfg, rec) -> None:
     """K5 on the real keypoints of every group of the serving path
     (full resolution and both pyramid-tail groups, from phase A's first
     levels) and K6 on the patches it accepts, each against its plain
-    version."""
-    import torch
-
-    from hesaff_tpu_torch import dist, sift
-    from hesaff_tpu_torch.ops import cuda_patches, cuda_sift
+    version, on the instances of the default shapes."""
+    from hesaff_tpu_torch import dist
 
     flat, levels_a, _, ncap = dist.phase_a(images, cfg)
-    groups = dist.default_group_spec(HEIGHT, WIDTH, cfg, per_image_cap=1024,
-                                     batch=BATCH)
-    e5, ms, pms, b5, f5, kept = 0.0, 0.0, 0.0, 0, 0.0, []
-    slots, slot_ok = [], []
+    rec["patches_group"], slots, ok = k5_groups(
+        images, flat, levels_a, ncap, cfg, "phase 2", generic=False)
+    rec["sift_desc"] = k6_check(slots, ok, cfg, "phase 2", "warp64")
+
+
+def k5_groups(images, flat, levels_a, ncap, cfg, label: str,
+              generic: bool):
+    """K5 against its plain version on phase A's keypoints (flat, its
+    first levels levels_a) in every group of the serving path's table
+    (per-image cap 1024) at cfg's patch side, each group on the generic
+    geometry or on none of it as `generic` says.  Returns (record, every
+    slot's patch, the slots' ok flags)."""
+    import torch
+
+    from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.ops import cuda_patches
+
+    B, H, W = images.shape
+    P = cfg.patch_size
+    groups = dist.default_group_spec(H, W, cfg, per_image_cap=1024, batch=B)
+    e5, ms, pms, b5, f5, slots, slot_ok = 0.0, 0.0, 0.0, 0, 0.0, [], []
     for bsize, _, gi, a, valid, _ in dist.group_selections(flat, cfg, groups,
                                                            ncap):
         kp = (gi, *(a[k] for k in ("x", "y", "s", "a11", "a21", "a22")))
@@ -624,16 +675,20 @@ def phase_group_kernels(images, cfg, rec) -> None:
             ps, octave, bsrc = dist.tail_source_plan(bsize, 1.0)
             src = levels_a[octave - 1].contiguous()
             args, cbad = cuda_patches.group_args(
-                src, bsrc, *kp, cfg, valid, ps=ps, orig_hw=(HEIGHT, WIDTH))
+                src, bsrc, *kp, cfg, valid, ps=ps, orig_hw=(H, W))
             what = (f"tail group {bsize} (ps {ps:g}, octave {octave}, "
                     f"bucket_src {bsrc})")
+        what = f"patches_group P {P}, {what}"
+        geom = cuda_patches.geometry(args[9].shape[1], P)[0]
+        check((geom == cuda_patches.GENERIC_GEOMETRY) == generic,
+              f"{label} {what}: geometry {geom}")
         pk, bad = cuda_patches.patches_group(*args)
         pp, pbad = cuda_patches.patches_group_plain(*args)
         ok, pok = valid & ~cbad & ~bad, valid & ~cbad & ~pbad
-        check(bool(torch.equal(ok, pok)), f"patches_group ok, {what}")
+        check(bool(torch.equal(ok, pok)), f"{label} {what}: ok flags")
         good = ~pbad
         err = float((pk - pp)[good].abs().max()) if bool(good.any()) else 0.0
-        check(err <= 1e-3, f"patches_group {what}: max err {err} > 1e-3")
+        check(err <= 1e-3, f"{label} {what}: max err {err} > 1e-3")
         e5 = max(e5, err)
         kms = timed(lambda: cuda_patches.patches_group(*args))
         kpms = timed(lambda: cuda_patches.patches_group_plain(*args), 3)
@@ -643,71 +698,81 @@ def phase_group_kernels(images, cfg, rec) -> None:
         # active keypoint: ~10 per bilinear sample (the row coordinate's
         # multiply-add, two fractions, three lerps), then WS.R^T and R.T
         # over the band of R its own taps give (non-zero taps + 1)
-        P = cfg.patch_size
-        src, ws = args[0], args[7][valid].double()
+        ws = args[7][valid].double()
         band = torch.minimum((args[9][valid] != 0).sum(1).double() + 1, ws)
-        b5 += (min(nbytes(src), 4 * int((ws * ws).sum()))
+        b5 += (min(nbytes(args[0]), 4 * int((ws * ws).sum()))
                + nbytes(*args[1:11], pk, bad))
         f5 += float((10 * ws * ws + 2 * P * ws * band
                      + 2 * P * P * band).sum())
-        kept.append(pk[ok])
         slots.append(pk)
         slot_ok.append(ok)
-        log(f"phase 2 patches_group {what}: {int(valid.sum())} keypoints "
-            f"in {valid.numel()} slots, ok {int(ok.sum())} (equal), max "
-            f"err {err:.3g} (atol 1e-3); kernel {kms:.3f} ms, plain "
-            f"{kpms:.3f} ms")
-    rec["patches_group"] = dict(max_abs_err=e5, ms=ms, plain_ms=pms,
-                                **bound(b5, f5))
+        log(f"{label} {what}: {int(valid.sum())} keypoints in "
+            f"{valid.numel()} slots, ok {int(ok.sum())} (equal), max err "
+            f"{err:.3g} (atol 1e-3), geometry {geom}; kernel {kms:.3f} ms, "
+            f"plain {kpms:.3f} ms")
+    out = dict(patch_size=P, groups=[b for b, _ in groups], max_abs_err=e5,
+               ms=ms, plain_ms=pms, **bound(b5, f5))
+    log(f"{label} patches_group P {P}, {len(groups)} groups: kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']})")
+    return out, torch.cat(slots), torch.cat(slot_ok)
 
-    pt = torch.cat(kept).contiguous()
+
+def k6_check(slots, ok, cfg, label: str, inst: str) -> dict:
+    """K6 (instance `inst`) on the patches of every slot: the float entry
+    on the valid ones within one step and >= 99% exact of the plain
+    version, the masked uint8 entry (the serving path's form, one launch
+    over every slot, as dist.describe_valid makes it) equal to it on
+    valid slots and zero elsewhere; both entries timed, with the bound of
+    the masked one."""
+    import torch
+
+    from hesaff_tpu_torch import sift
+    from hesaff_tpu_torch.ops import cuda_sift, masks
+
+    P, sb, ob = cfg.patch_size, cfg.spatial_bins, cfg.orientation_bins
+    what = f"{label} sift_desc P {P}, bins {[sb, sb, ob]}"
+    check(cuda_sift.instance(P, sb, ob) == inst, f"{what}: not {inst}")
+    pt = slots[ok].contiguous()
     d = cuda_sift.sift_descriptors(pt, cfg)
     r = sift.sift_descriptors(pt, cfg)
     diff = (d - r).abs()
-    e6 = float(diff.max())
-    exact = float((diff == 0).float().mean())
-    check(e6 <= 1, f"sift_desc: max step {e6} > 1")
-    check(exact >= 0.99, f"sift_desc: exact share {exact} < 0.99")
-    # the serving path's form: one masked uint8 launch over every slot
-    # of the groups, as dist.describe_valid makes it
-    slots, slot_ok = torch.cat(slots), torch.cat(slot_ok)
-    m = cuda_sift.describe_masked(slots, slot_ok, cfg)
-    check(not bool(m[~slot_ok].any()), "describe_masked: a row of an "
-          "invalid slot is not zero")
-    check(bool(torch.equal(m[slot_ok], d.to(torch.uint8))),
-          "describe_masked: valid rows differ from the float entry's")
-    mdiff = (m[slot_ok].float() - r).abs()
-    check(float(mdiff.max()) <= 1 and float((mdiff == 0).float().mean())
-          >= 0.99, "describe_masked: valid rows off the plain version")
+    e6 = float(diff.max()) if diff.numel() else 0.0
+    exact = float((diff == 0).float().mean()) if diff.numel() else 1.0
+    check(e6 <= 1, f"{what}: max step {e6} > 1")
+    check(exact >= 0.99, f"{what}: exact share {exact} < 0.99")
+    m = cuda_sift.describe_masked(slots, ok, cfg)
+    check(tuple(m.shape) == (slots.shape[0], sb * sb * ob)
+          and not bool(m[~ok].any()), f"{what}: a row of an invalid slot "
+          "is not zero")
+    check(bool(torch.equal(m[ok], d.to(torch.uint8))),
+          f"{what}: masked rows differ from the float entry's")
     fms = timed(lambda: cuda_sift.sift_descriptors(pt, cfg))
-    ms = timed(lambda: cuda_sift.describe_masked(slots, slot_ok, cfg))
-    pms = timed(lambda: cuda_sift.describe_masked_plain(slots, slot_ok, cfg),
-                3)
+    ms = timed(lambda: cuda_sift.describe_masked(slots, ok, cfg))
+    pms = timed(lambda: cuda_sift.describe_masked_plain(slots, ok, cfg), 3)
     # what the function needs a patch: ~30 flops a pixel (normalise,
     # gradients, magnitude, atan2, the two-bin orientation split); the
     # row binning adds a pixel's 2 orientation values into its row's
     # non-zero spatial bins, on the mask's support (a multiply-add each);
     # the column binning adds the (row bin, orientation, column) sums
     # into each column's non-zero bins
-    from hesaff_tpu_torch.ops import masks
-
-    K, P = pt.shape[0], cfg.patch_size
-    nb, no = cfg.spatial_bins, cfg.orientation_bins
-    nz = (masks.sift_spatial_bins(P, nb) != 0).sum(axis=1)
+    nz = (masks.sift_spatial_bins(P, sb) != 0).sum(axis=1)
     support = masks.circular_gauss_mask(P) > 0
-    flops = K * (30 * P * P + 2 * 2 * int((support * nz[:, None]).sum())
-                 + 2 * nb * no * int(nz.sum()))
+    flops = pt.shape[0] * (30 * P * P
+                           + 2 * 2 * int((support * nz[:, None]).sum())
+                           + 2 * sb * ob * int(nz.sum()))
     # bytes: the valid patches read once, the valid flags and the uint8
     # rows of every slot
-    rec["sift_desc"] = dict(max_abs_err=e6, ms=ms, plain_ms=pms,
-                            float_entry_ms=fms,
-                            **bound(nbytes(pt, slot_ok, m), flops))
-    log(f"phase 2 sift_desc on {K} real patches: max step {e6:g} (<= 1), "
-        f"exact {exact:.4f} (>= 0.99), float entry {fms:.3f} ms; masked "
-        f"uint8 entry on the {slots.shape[0]} serving slots: invalid rows "
-        f"zero, valid rows = float entry, exact vs plain "
-        f"{float((mdiff == 0).float().mean()):.4f}; kernel {ms:.3f} ms, "
-        f"plain {pms:.3f} ms")
+    out = dict(patch_size=P, bins=[sb, sb, ob], patches=pt.shape[0],
+               slots=slots.shape[0], max_abs_err=e6, exact=exact, ms=ms,
+               plain_ms=pms, float_entry_ms=fms,
+               **bound(nbytes(pt, ok, m), flops))
+    log(f"{what}: {pt.shape[0]} valid patches of {slots.shape[0]} slots, "
+        f"max step {e6:g} (<= 1), exact {exact:.4f} (>= 0.99), masked rows "
+        f"= float entry, invalid rows zero; float entry {fms:.3f} ms; "
+        f"masked kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
 
 
 def phase_maps_kernel(large, cfg, rec) -> None:
@@ -2083,6 +2148,275 @@ def _check_gloo_ranks(res, staged, descs, dense_nn, sol0, err0, in_path,
         f"sharded extraction wall {r0['ext_ms']:.1f} ms")
 
 
+def _generic_counter(mod: str, attr: str):
+    import importlib
+
+    return importlib.import_module(f"hesaff_tpu_torch.ops.{mod}"), attr
+
+
+def reset_generic() -> None:
+    for _, _, mod, attr in GENERIC:
+        m, a = _generic_counter(mod, attr)
+        setattr(m, a, 0)
+
+
+def read_generic() -> dict:
+    return {name: getattr(*_generic_counter(mod, attr))
+            for name, _, mod, attr in GENERIC}
+
+
+def _headline(rows, **at) -> dict:
+    """The row of `rows` at the shape `at` as the kernel's record, with
+    the largest error of all and every row under by_shape."""
+    head = next(r for r in rows if all(r[k] == v for k, v in at.items()))
+    out = {k: v for k, v in head.items() if k != "max_abs_err"}
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    out["by_shape"] = rows
+    return out
+
+
+def _config_runs(images4, cfg):
+    """Phase 11's path: (label, config, entry, images) of each run."""
+    d = dataclasses.replace
+    return [
+        ("extract_batch P 65", d(cfg, patch_size=65), "batch", images4),
+        ("extract_batch P 97", d(cfg, patch_size=97), "batch", images4),
+        ("grouped P 65", d(cfg, patch_size=65), "grouped", images4),
+        ("grouped P 96", d(cfg, patch_size=96), "grouped", images4),
+        ("extract_batch initial_sigma 4", d(cfg, initial_sigma=4.0),
+         "batch", images4[:2]),
+        ("extract_batch smm_window_size 33", d(cfg, smm_window_size=33),
+         "batch", images4[:2]),
+    ]
+
+
+def _run_entry(entry, images, cfg, batch: int):
+    """extract_batch's Features of every image, or the grouped path's
+    DenseFeatures with the group table of a batch of `batch`."""
+    from hesaff_tpu_torch import dist, extract_batch
+
+    if entry == "batch":
+        return extract_batch(images, cfg)
+    groups = dist.default_group_spec(*images.shape[-2:], cfg,
+                                     per_image_cap=1024, batch=batch)
+    return dist.extraction_step_grouped(images, cfg, groups)
+
+
+def _cli_gate(gpu_path, cpu_path) -> None:
+    """The CLI's two files held to _gate: keypoints keyed on (u, v,
+    e00), the ellipse (e00, e01, e11) relative to its largest entry in
+    place of U, and the descriptors."""
+    from types import SimpleNamespace
+
+    from hesaff_tpu_torch.sift_io import read_sift_file
+
+    def feats(path):
+        f = read_sift_file(path)
+        scale = np.abs(np.stack([f["e00"], f["e01"], f["e11"]])).max(0)
+        rel = lambda k: f[k] / np.maximum(scale, 1e-30)
+        return SimpleNamespace(
+            n=len(f["u"]), x=f["u"], y=f["v"], s=rel("e00"),
+            a11=rel("e00"), a12=rel("e01"), a21=rel("e01"), a22=rel("e11"),
+            desc=f["desc"])
+
+    _gate(feats(gpu_path), feats(cpu_path), "phase 11 cli extract "
+          "--patch-size 65")
+
+
+def _start_cli(images_np):
+    """`cli extract --patch-size 65` of bench image 0 (a PGM file) on
+    the card and with --device cpu, in two processes: (processes,
+    output paths)."""
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    img = os.path.join(out_dir, "phase11_bench0.pgm")
+    _write_pgm(img, np.clip(np.rint(images_np[0]), 0, 255).astype(np.uint8))
+    paths = {d: os.path.join(out_dir, f"phase11_{d}.hesaff.sift")
+             for d in ("cuda", "cpu")}
+    for p in paths.values():
+        if os.path.exists(p):
+            os.remove(p)
+    procs = {d: subprocess.Popen(
+        [sys.executable, "-m", "hesaff_tpu_torch.cli", "extract", img,
+         "--patch-size", "65", "-o", paths[d]]
+        + (["--device", "cpu"] if d == "cpu" else []),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for d in paths}
+    return procs, paths
+
+
+def _finish_cli(procs, paths) -> None:
+    """Wait for _start_cli's processes (each must exit 0) and gate the
+    card's file against the CPU's."""
+    for d, pr in procs.items():
+        try:
+            txt, _ = pr.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            pr.kill()
+            txt, _ = pr.communicate()
+        check(pr.returncode == 0, f"phase 11 cli extract --patch-size 65 "
+              f"({d}) exited {pr.returncode}: {txt[-400:]}")
+        log(f"phase 11 cli extract --patch-size 65 ({d}): "
+            f"{txt.strip().splitlines()[-1] if txt.strip() else ''}")
+    if all(os.path.exists(p) for p in paths.values()):
+        _cli_gate(paths["cuda"], paths["cpu"])
+
+
+def phase_configs(images_np, cfg, dev, card: str):
+    """Phase 11: the HesaffConfigs the default path does not run.
+    (a) each generic instance against its plain version at this phase's
+    shapes (K5 and K6 on bench images 0-3's group table at patch sides
+    65, 96 and 128, K6 at three bin layouts, K1 at 37 and 63 taps on
+    their first levels, K4 at grids 33 and 63 on every octave of images
+    0-1); (b) the path: extract_batch and the grouped path at patch
+    sides over 64 px, extract_batch at initial_sigma 4.0 and at
+    smm_window_size 33, counts set to 0 before and read after, image 0
+    of each gated against a CPU run; (c) `cli extract --patch-size 65`
+    on the card and on the CPU, its files gated.  Returns (records of
+    the generic instances, the path's launches)."""
+    import torch
+
+    from hesaff_tpu_torch import dist, pyramid
+    from hesaff_tpu_torch.ops import cuda_affine, cuda_blur
+    from hesaff_tpu_torch.ops.blur import gaussian_taps
+    from hesaff_tpu_torch.ops.hessian import norm2_of
+
+    before = read_generic()
+    check(not any(before.values()), f"phase 11: a generic instance "
+          f"launched in phases 1-10 (default configuration): {before}")
+    images = torch.as_tensor(images_np[:CFG_IMAGES], device=dev)
+    rec = {}
+
+    # (a) K5 and K6 on phase A's keypoints (phase A reads no patch
+    # parameter), every group of the table at each patch side
+    flat, levels_a, _, ncap = dist.phase_a(images, cfg)
+    k5, k6 = [], []
+    for P in CFG_SIDES:
+        cp = dataclasses.replace(cfg, patch_size=P)
+        r5, slots, ok = k5_groups(images, flat, levels_a, ncap, cp,
+                                  "phase 11", generic=True)
+        k5.append(r5)
+        for sb, ob in CFG_BINS:
+            k6.append(k6_check(slots, ok, dataclasses.replace(
+                cp, spatial_bins=sb, orientation_bins=ob), "phase 11",
+                "generic"))
+        del slots, ok
+    rec["patches_group_generic"] = _headline(k5, patch_size=65)
+    rec["sift_desc_generic"] = _headline(k6, patch_size=65, bins=[4, 4, 8])
+    del flat, levels_a
+
+    # K1's generic instance on the first levels, bit-equal
+    first, _ = pyramid.prepare_first_level(images, cfg)
+    k1 = []
+    for k in CFG_TAPS:
+        taps = gaussian_taps((k - 1) / 6.0, k)
+        norm2 = norm2_of(((k - 1) / 6.0) ** 2)
+        check(cuda_blur.instance(k) == "generic",
+              f"blur_doh k={k}: not generic")
+        kb, kr = cuda_blur.blur_doh(first, taps, norm2)
+        pb, pr = cuda_blur.blur_doh_plain(first, taps, norm2)
+        check(bool(torch.equal(kb, pb) and torch.equal(kr, pr)),
+              f"phase 11 blur_doh k={k}: not bit-equal to its plain version")
+        check(bool(torch.equal(cuda_blur.blur(first, taps), pb)),
+              f"phase 11 blur k={k} (blur-only): not bit-equal")
+        er = float((kr - pr).abs().max())
+        del kb, kr, pb, pr
+        ms = timed(lambda: cuda_blur.blur_doh(first, taps, norm2))
+        pms = timed(lambda: cuda_blur.blur_doh_plain(first, taps, norm2), 3)
+        k1.append(dict(taps=k, max_abs_err=er, ms=ms, plain_ms=pms, **bound(
+            3 * nbytes(first), first.numel() * (4 * k + 13))))
+        log(f"phase 11 blur_doh {tuple(first.shape)} k={k}: bit-equal "
+            f"(blur_doh and blur-only); kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms, bound {k1[-1]['bound_ms']:.4f} ms")
+    rec["blur_doh_generic"] = _headline(k1, taps=CFG_TAPS[0])
+    del first
+
+    # K4's generic instance on every octave of images 0-1
+    k4 = {}
+    for G in CFG_GRIDS:
+        check(cuda_affine.instance(G) == "generic",
+              f"affine G {G}: not generic")
+        phase_affine(images[:2], dataclasses.replace(cfg, smm_window_size=G),
+                     k4, card, label=f"phase 11 G {G}", key=G)
+    rows = [dict(grid=G, **{k: v for k, v in r.items() if k != "octaves"})
+            for G, r in k4.items()]
+    rec["affine_adapt_generic"] = _headline(rows, grid=CFG_GRIDS[0])
+
+    # (b) the path, counts from 0
+    runs = _config_runs(images, cfg)
+    torch.cuda.synchronize()
+    reset_counts()
+    reset_generic()
+    outs = []
+    for label, c, entry, imgs in runs:
+        t0 = time.perf_counter()
+        outs.append(_run_entry(entry, imgs, c, imgs.shape[0]))
+        torch.cuda.synchronize()
+        log(f"phase 11 {label} on {imgs.shape[0]} x {HEIGHT}x{WIDTH}: "
+            f"{time.perf_counter() - t0:.3f} s (first call)")
+    launches, generic = read_counts(), read_generic()
+    for k, v in launches.items():
+        if k == "detect_maps":
+            check(v == 0, f"phase 11: K3 launched {v} times")
+        else:
+            check(v > 0, f"phase 11: kernel {k} never launched")
+    for k, v in generic.items():
+        check(v > 0, f"phase 11: {k} never launched on the path")
+    log(f"phase 11 path launches {launches}, generic instances {generic}")
+    # the bucket path raises at an even patch side on the card too
+    from hesaff_tpu_torch import extract_batch
+    try:
+        extract_batch(images[:1], dataclasses.replace(cfg, patch_size=96))
+        check(False, "phase 11: extract_batch at patch_size 96 did not raise")
+    except ValueError as e:
+        check("patch_size 96 is even" in str(e),
+              f"phase 11: extract_batch at patch_size 96 raised {e}")
+    # (c) the CLI on the card and on the CPU, beside the CPU gates
+    cli = _start_cli(images_np)
+
+    # image 0 of each run against a CPU run
+    for (label, c, entry, imgs), out in zip(runs, outs):
+        nb = c.spatial_bins ** 2 * c.orientation_bins
+        if entry == "batch":
+            gpu0 = out[0]
+            ok = (all(f.desc.shape == (f.n, nb) for f in out)
+                  and all(np.isfinite(np.stack([f.x, f.y, f.s, f.a11, f.a12,
+                                                f.a21, f.a22])).all()
+                          for f in out))
+        else:
+            v = out.valid
+            ok = (tuple(out.desc.shape) == (v.numel(), nb) and all(
+                bool(torch.isfinite(getattr(out, k)[v]).all())
+                for k in ("x", "y", "s", "a11", "a21", "a22")))
+            gpu0 = _image_features(out, 0)
+        check(ok and gpu0.n > 0, f"phase 11 {label}: shape or non-finite "
+              "fields")
+        if entry == "grouped" and int(out.overflow):
+            # the direct branch's capacity, max(64, the first group's
+            # / 4), overflows at this side: the CPU runs the whole batch
+            # and the two overflow counts must agree
+            n_img = imgs.shape[0]
+            cpu = _run_entry(entry, torch.as_tensor(images_np[:n_img]), c,
+                             n_img)
+            check(int(cpu.overflow) == int(out.overflow),
+                  f"phase 11 {label}: overflow gpu {int(out.overflow)} cpu "
+                  f"{int(cpu.overflow)}")
+            log(f"phase 11 {label}: overflow {int(out.overflow)} (the CPU's "
+                f"{int(cpu.overflow)}), valid {int(v.sum())}")
+        else:
+            if entry == "grouped":
+                check(int(out.overflow) == 0,
+                      f"phase 11 {label}: overflow {int(out.overflow)}")
+            cpu = _run_entry(entry, torch.as_tensor(images_np[:1]), c,
+                             imgs.shape[0])
+        cpu = cpu[0] if entry == "batch" else _image_features(cpu, 0)
+        _gate(gpu0, cpu, f"phase 11 {label}")
+    del outs
+
+    _finish_cli(*cli)
+    return rec, launches, generic
+
+
 _SPANS = ("phase A", "group ", "direct branch", "SIFT")
 
 
@@ -2213,6 +2547,8 @@ def main() -> int:
     launches["10"] = run("10", phase_multidevice, images_np, dense, cfg, dev,
                          card)
     del dense
+    rec11, launches["11"], generic11 = run("11", phase_configs, images_np,
+                                           cfg, dev, card)
     log("  phase walls (s): "
         + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     if failures:
@@ -2224,6 +2560,12 @@ def main() -> int:
                     **{f"launches_phase{p}": c[name]
                        for p, c in launches.items()}, **rec[name])
                for name, src, rep in KERNELS]
+    # the generic instances: launches on phase 11's path
+    parent = {name: (src, rep) for name, src, rep in KERNELS}
+    kernels += [dict(name=name, route="cuda", source=parent[of][0],
+                     replaces=parent[of][1], launches=generic11[name],
+                     launches_phase11=generic11[name], **rec11[name])
+                for name, of, _, _ in GENERIC]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

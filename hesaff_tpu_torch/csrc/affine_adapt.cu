@@ -15,8 +15,10 @@
 // launches are bound by issue and the small ones by one chain's length.
 // What the design does about it:
 // - the grid side G is a template parameter (an instance for 19, the
-//   configuration's, and a generic one for G <= 31 that walks the grid
-//   in batches of 8 samples a lane), so each lane's sample offsets are
+//   configuration's, and a generic one for any G whose grid and mask fit
+//   the shared memory, G <= 107, that walks the grid in batches of 8
+//   samples a lane; above G = 49 its block takes more than the default
+//   48 KB of shared memory), so each lane's sample offsets are
 //   computed once before the step loop and its 12 samples are unrolled:
 //   all 48 gathers of a step are issued before the first is used, one
 //   round trip a step rather than twelve;
@@ -50,7 +52,7 @@
 #include <stdint.h>
 
 #define WARPS 4
-#define MAX_GRID 31
+#define SHMEM_MAX 232448  // bytes of shared memory a block may use
 #define FULL 0xffffffffu
 // samples a lane gathers together in the generic instance
 #define GENERIC_BATCH 8
@@ -325,7 +327,12 @@ static int launch(const float* stack, long long s_img, long long s_lvl,
                   cudaStream_t stream) {
   const size_t shmem = sizeof(float) * (size_t)G * G * (1 + WARPS);
   int dev, sms, per_sm;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = cudaSuccess;
+  if (shmem > 48 * 1024)
+    err = cudaFuncSetAttribute(affine_kernel<GC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)shmem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
@@ -342,6 +349,15 @@ static int launch(const float* stack, long long s_img, long long s_lvl,
   return (int)cudaGetLastError();
 }
 
+// The instance grid side G takes: 0 the one for 19, 1 the generic one,
+// -1 none (G < 3, or a grid and mask over the shared memory).  *shmem:
+// the block's bytes.
+extern "C" int hesaff_affine_instance(int G, long long* shmem) {
+  *shmem = (long long)(sizeof(float) * (size_t)G * G * (1 + WARPS));
+  if (G < 3 || *shmem > SHMEM_MAX) return -1;
+  return G == 19 ? 0 : 1;
+}
+
 // stack: float planes; keypoint k samples the plane at
 // stack + img_idx[k] * s_img + src[k] * s_lvl (elements), rows of W
 // contiguous floats.  mask: G*G floats.  Outputs: ok (K) i32, u (K,4)
@@ -354,10 +370,12 @@ extern "C" int hesaff_affine_adapt(
     const float* mask, int G, int win, int max_iter, float conv_thr,
     float aniso_max, int32_t* ok, float* u, int32_t* iters, int* next,
     void* stream) {
-  if (G < 3 || G > MAX_GRID || win < 2 || win > H || win > W)
+  long long shmem = 0;
+  const int inst = hesaff_affine_instance(G, &shmem);
+  if (inst < 0 || win < 2 || win > H || win > W)
     return (int)cudaErrorInvalidValue;
   if (K == 0) return (int)cudaGetLastError();
-  return (G == 19 ? launch<19> : launch<0>)(
+  return (inst == 0 ? launch<19> : launch<0>)(
       stack, s_img, s_lvl, H, W, img_idx, src, lx, ly, ratio, active, K,
       mask, G, win, max_iter, conv_thr, aniso_max, ok, u, iters, next,
       (cudaStream_t)stream);

@@ -15,7 +15,9 @@
 //   - the tap count a template parameter for the ladder's k = 1, 9, 11,
 //     13, 15 (1 is the identity that copies level 0 and gives its DoH),
 //     so both passes run fully unrolled over a register sliding window;
-//     one generic instance loops over any other odd k <= 31;
+//     one generic instance loops over any other odd k <= 255 (the
+//     ladders of larger initial sigmas: 37 taps at sigma 4), its halo
+//     of up to 127 px a side sized at run time;
 //   - the row pass (along H) reads the input straight from device
 //     memory into that window, a thread a 17-row strip of one column
 //     (neighbouring threads read neighbouring words; the halo's re-reads
@@ -48,7 +50,7 @@
 #define THREADS 256
 #define SR 17            // rows of a row-pass strip (BH = 2 strips)
 #define SC 11            // columns of a column-pass strip (BW = 6 strips)
-#define MAX_TAPS 31
+#define MAX_TAPS 255
 static_assert(BH % SR == 0 && BW % SC == 0, "strips must tile the tile");
 
 struct Taps {
@@ -88,6 +90,7 @@ __device__ __forceinline__ void taps_down(const float (&w)[N + K - 1],
   }
 }
 
+// K: the tap count (0: any, read from k)
 template <int K>
 __global__ void __launch_bounds__(THREADS) blur_doh_kernel(
     const float* __restrict__ in, long long in_stride,
@@ -181,6 +184,12 @@ static int launch(const float* in, long long in_stride, float* blur,
                   float* resp, long long out_stride, int n, int H, int W,
                   const Taps& t, int k, float norm2, cudaStream_t stream) {
   const Geo g(k);
+  if (g.shmem() > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        blur_doh_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)g.shmem());
+    if (err != cudaSuccess) return (int)err;
+  }
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, n);
   blur_doh_kernel<K><<<grid, THREADS, g.shmem(), stream>>>(
       in, in_stride, blur, resp, out_stride, H, W, t, k, norm2);

@@ -29,9 +29,16 @@
 //   whole ws <= 97 workspace (one strip, one chunk, 75 KB, three blocks
 //   an SM), or eight warps over strips of 44 rows x 196-column chunks
 //   for larger workspaces.  Any ws runs in any of them; only the speed
-//   differs.  A block holds one keypoint: shared memory a keypoint sets
-//   the occupancy, and several keypoints a block would need as much
-//   each (launch bounds cap the registers to match).
+//   differs.  Patches of more than 64 px (MAX_P) take a fifth, generic
+//   geometry: eight warps whose patch accumulator lives in shared
+//   memory (P x P4 floats, not NA tiles of registers a thread), a loop
+//   over as many tile passes as the patch needs, and a chunk of
+//   max(128, P4) columns, so that the strip's rows of R^T fit the
+//   sample buffer; a patch of up to ~148 px fits the 232,448 bytes with
+//   the tails' KMAX, and past that the wrapper raises.  A block holds
+//   one keypoint: shared memory a keypoint sets the occupancy, and
+//   several keypoints a block would need as much each (launch bounds
+//   cap the registers to match).
 // - A strip is sampled in one pass (each thread four rows of one
 //   column, all sixteen taps in flight, stored as one 16-byte word of
 //   the transposed strip WS^T[q][j]); R is stored dense and transposed,
@@ -101,6 +108,28 @@ __device__ __forceinline__ void load_rows(const float* s, float* v) {
   }
 }
 
+// One register tile of a product: c[i][.] (+)= sum_q a[q * as + i] *
+// b[q * bs + .] over q in [lo, hi), TR rows of a (a 4 * TR-byte word)
+// against 4 columns of b (16 bytes) a step, fmaf in q order.
+template <int TR>
+__device__ __forceinline__ void tile_fma(const float* a, int as,
+                                         const float* b, int bs, int lo,
+                                         int hi, float (&c)[TR][4]) {
+#pragma unroll 4
+  for (int q = lo; q < hi; ++q) {
+    float av[TR];
+    load_rows<TR>(a + q * as, av);
+    const float4 bv = *(const float4*)(b + q * bs);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      c[i][0] = fmaf(av[i], bv.x, c[i][0]);
+      c[i][1] = fmaf(av[i], bv.y, c[i][1]);
+      c[i][2] = fmaf(av[i], bv.z, c[i][2]);
+      c[i][3] = fmaf(av[i], bv.w, c[i][3]);
+    }
+  }
+}
+
 // Per-keypoint state of R in shared memory.
 struct RView {
   const float* tp;   // taps with one zero on each side: tp[m + 1] = taps[m]
@@ -147,8 +176,10 @@ __device__ __forceinline__ void fill_rt(const RView& R, float* dst, int c0,
 
 // SR: workspace rows a strip, CW: columns a chunk, TR: rows of a
 // register tile, NA: patch tiles a thread, MINB: blocks an SM should
-// hold (it caps the registers a thread).
-template <int TPB, int TR, int SR, int CW, int NA, int MINB>
+// hold (it caps the registers a thread); SACC: the patch accumulates in
+// shared memory over tile passes (NA unused) and a chunk spans
+// max(CW, P4) columns.
+template <int TPB, int TR, int SR, int CW, int NA, int MINB, bool SACC>
 __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
     const float* __restrict__ src, int H, int W,
     const int32_t* __restrict__ img_idx, const float* __restrict__ xs,
@@ -163,10 +194,11 @@ __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
   constexpr int SRP = ((SR / 4) % 2 == 1) ? SR : SR + 4;
   extern __shared__ __align__(16) float sm[];
   const int P4 = (P + 3) & ~3, NPB = P4 / 4, NRB = (P + TR - 1) / TR;
-  float* s_rq = sm;                      // CW x P4: R^T of the chunk
-  float* s_t = s_rq + CW * P4;           // SR x P4: T of the strip
-  float* s_ws = s_t + SR * P4;           // CW x SRP: WS^T (or R^T rows)
-  float* s_tp = s_ws + CW * SRP;         // kmax + 2
+  const int CWv = SACC ? max(CW, P4) : CW;
+  float* s_rq = sm;                      // CWv x P4: R^T of the chunk
+  float* s_t = s_rq + CWv * P4;          // SR x P4: T of the strip
+  float* s_ws = s_t + SR * P4;           // CWv x SRP: WS^T (or R^T rows)
+  float* s_tp = s_ws + CWv * SRP;        // kmax + 2
   float* s_pre = s_tp + kmax + 2;        // kmax + 1: sum of taps[t < j]
   float* s_suf = s_pre + kmax + 1;       // kmax + 1: sum of taps[t >= j]
   float* s_f = s_suf + kmax + 1;         // P4
@@ -180,6 +212,9 @@ __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
   int* s_alo = s_thi + NPB;              // NRB: union of TR rows' ranges
   int* s_ahi = s_alo + NRB;              // NRB
   int* s_band = s_ahi + NRB;             // first, last nonzero tap
+  // SACC: NRB * TR x P4, the patch's sums, at the next 16-byte boundary
+  float* s_acc =
+      (float*)(((uintptr_t)(s_band + 2) + 15) & ~(uintptr_t)15);
 
   const int k = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -304,7 +339,7 @@ __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
   R.P = P;
   R.kmax = kmax;
   R.w = w;
-  const bool single = w <= CW;  // one chunk: R^T of all columns stays
+  const bool single = w <= CWv;  // one chunk: R^T of all columns stays
   if (single) fill_rt<TPB>(R, s_rq, 0, w, P4, s_cs, s_ce);
 
   const float half = (float)(w >> 1);
@@ -317,11 +352,17 @@ __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
     for (int i = 0; i < TR; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[s][i][c] = 0.0f;
+  if (SACC) {
+    // read first after the first chunk's barriers
+    float4* a4 = (float4*)s_acc;
+    for (int e = tid; e < NRB * TR * NPB; e += TPB)
+      a4[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
 
   for (int j0 = 0; j0 < w; j0 += SR) {
     const int jend = min(j0 + SR, w);
-    for (int q0 = 0; q0 < w; q0 += CW) {
-      const int qend = min(q0 + CW, w);
+    for (int q0 = 0; q0 < w; q0 += CWv) {
+      const int qend = min(q0 + CWv, w);
       __syncthreads();  // the previous step's readers are done
       if (!single) fill_rt<TPB>(R, s_rq, q0, qend - q0, P4, s_cs, s_ce);
       // sample WS^T[q - q0][j - j0], four rows of one column a thread
@@ -391,21 +432,8 @@ __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
         for (int i = 0; i < TR; ++i)
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) c[i][cc] = 0.0f;
-        const float* wcol = s_ws + TR * jg - q0 * SRP;
-        const float* rcol = s_rq + 4 * pb - q0 * P4;
-#pragma unroll 4
-        for (int q = lo; q < hi; ++q) {
-          float wv[TR];
-          load_rows<TR>(wcol + q * SRP, wv);
-          const float4 rr = *(const float4*)(rcol + q * P4);
-#pragma unroll
-          for (int i = 0; i < TR; ++i) {
-            c[i][0] = fmaf(wv[i], rr.x, c[i][0]);
-            c[i][1] = fmaf(wv[i], rr.y, c[i][1]);
-            c[i][2] = fmaf(wv[i], rr.z, c[i][2]);
-            c[i][3] = fmaf(wv[i], rr.w, c[i][3]);
-          }
-        }
+        tile_fma<TR>(s_ws + TR * jg - q0 * SRP, SRP, s_rq + 4 * pb - q0 * P4,
+                     P4, lo, hi, c);
         if (has) {
 #pragma unroll
           for (int i = 0; i < TR; ++i) {
@@ -431,8 +459,37 @@ __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
       rj = s_ws;
     }
     // patch[p][p'] += sum_j R[p][j] T[j][p'] over the strip
+    if (SACC) {
+      for (int t0 = 0; t0 < NRB * NPB; t0 += TPB) {
+        const int t = t0 + tid;
+        const bool has = t < NRB * NPB;
+        const int rb = has ? t / NPB : 0, pb = has ? t - rb * NPB : 0;
+        int lo = has ? max(s_alo[rb], j0) : INT_MAX;
+        int hi = has ? min(s_ahi[rb], jend) : INT_MIN;
+        lo = __reduce_min_sync(FULL, lo);
+        hi = __reduce_max_sync(FULL, hi);
+        float* arow = s_acc + (TR * rb) * P4 + 4 * pb;
+        float c[TR][4];
 #pragma unroll
-    for (int s = 0; s < NA; ++s) {
+        for (int i = 0; i < TR; ++i) {
+          const float4 o = *(const float4*)(arow + i * P4);
+          c[i][0] = o.x;
+          c[i][1] = o.y;
+          c[i][2] = o.z;
+          c[i][3] = o.w;
+        }
+        tile_fma<TR>(rj + TR * rb - j0 * P4, P4, s_t + 4 * pb - j0 * P4, P4,
+                     lo, hi, c);
+        if (has) {
+#pragma unroll
+          for (int i = 0; i < TR; ++i)
+            *(float4*)(arow + i * P4) =
+                make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < (SACC ? 0 : NA); ++s) {
       const int t = s * TPB + tid;
       const bool has = t < NRB * NPB;
       const int rb = has ? t / NPB : 0, pb = has ? t - rb * NPB : 0;
@@ -440,26 +497,19 @@ __global__ void __launch_bounds__(TPB, MINB) patches_kernel(
       int hi = has ? min(s_ahi[rb], jend) : INT_MIN;
       lo = __reduce_min_sync(FULL, lo);
       hi = __reduce_max_sync(FULL, hi);
-      const float* rrow = rj + TR * rb - j0 * P4;
-      const float* trow = s_t + 4 * pb - j0 * P4;
-#pragma unroll 4
-      for (int j = lo; j < hi; ++j) {
-        float rv[TR];
-        load_rows<TR>(rrow + j * P4, rv);
-        const float4 tv = *(const float4*)(trow + j * P4);
-#pragma unroll
-        for (int i = 0; i < TR; ++i) {
-          acc[s][i][0] = fmaf(rv[i], tv.x, acc[s][i][0]);
-          acc[s][i][1] = fmaf(rv[i], tv.y, acc[s][i][1]);
-          acc[s][i][2] = fmaf(rv[i], tv.z, acc[s][i][2]);
-          acc[s][i][3] = fmaf(rv[i], tv.w, acc[s][i][3]);
-        }
-      }
+      tile_fma<TR>(rj + TR * rb - j0 * P4, P4, s_t + 4 * pb - j0 * P4, P4,
+                   lo, hi, acc[s]);
     }
   }
   const int any_bad = __syncthreads_or(touched ? 1 : 0);
+  if (SACC) {
+    for (int e = tid; e < PP; e += TPB) {
+      const int p = e / P;
+      patch[e] = s_acc[p * P4 + (e - p * P)];
+    }
+  }
 #pragma unroll
-  for (int s = 0; s < NA; ++s) {
+  for (int s = 0; s < (SACC ? 0 : NA); ++s) {
     const int t = s * TPB + tid;
     if (t >= NRB * NPB) continue;
     const int rb = t / NPB, pb = t - rb * NPB;
@@ -481,28 +531,38 @@ struct Geom {
                  const int32_t*, const float*, const float*, const uint8_t*,
                  int, int, float*, int32_t*);
   int tpb, tr, sr, cw, na;
+  bool sacc;
 };
 
-#define GEOM(TPB, TR, SR, CW, NA, MINB) \
-  {patches_kernel<TPB, TR, SR, CW, NA, MINB>, TPB, TR, SR, CW, NA}
+#define GEOM(TPB, TR, SR, CW, NA, MINB, SACC) \
+  {patches_kernel<TPB, TR, SR, CW, NA, MINB, SACC>, TPB, TR, SR, CW, NA, SACC}
 
 // 0: four warps, ws <= 52 in one piece; 1: eight warps, ws <= 97 in one
 // piece; 2: eight warps over strips of 44 rows x 196-column chunks; 3:
-// any patch size up to MAX_P (two patch tiles a thread)
+// any patch size up to MAX_P (two patch tiles a thread); 4: any larger
+// patch, accumulated in shared memory (the generic geometry)
 static const Geom kGeoms[] = {
-    GEOM(128, 4, 52, 52, 1, 7),
-    GEOM(256, 4, 100, 97, 1, 3),
-    GEOM(256, 2, 44, 196, 1, 2),
-    GEOM(256, 2, 44, 128, 2, 1),
+    GEOM(128, 4, 52, 52, 1, 7, false),
+    GEOM(256, 4, 100, 97, 1, 3, false),
+    GEOM(256, 2, 44, 196, 1, 2, false),
+    GEOM(256, 2, 44, 128, 2, 1, false),
+    GEOM(256, 4, 44, 128, 1, 1, true),
 };
 
+// columns of a chunk (the kernel's CWv)
+static int geom_cw(const Geom& v, int P) {
+  const int P4 = (P + 3) & ~3;
+  return v.sacc && P4 > v.cw ? P4 : v.cw;
+}
+
 static size_t geom_shmem(const Geom& v, int kmax, int P) {
-  const size_t P4 = (size_t)((P + 3) & ~3);
+  const size_t P4 = (size_t)((P + 3) & ~3), cw = (size_t)geom_cw(v, P);
   const size_t srp = ((v.sr / 4) % 2 == 1) ? v.sr : v.sr + 4;
   const size_t npb = P4 / 4, nrb = (size_t)((P + v.tr - 1) / v.tr);
-  const size_t floats = (size_t)v.cw * P4 + (size_t)v.sr * P4 +
-                        (size_t)v.cw * srp + (kmax + 2) + 2 * (kmax + 1) +
-                        3 * P4;
+  // SACC: the accumulator and up to 3 floats of padding before it
+  const size_t floats = cw * P4 + (size_t)v.sr * P4 + cw * srp +
+                        (kmax + 2) + 2 * (kmax + 1) + 3 * P4 +
+                        (v.sacc ? nrb * v.tr * P4 + 3 : 0);
   const size_t ints = 3 * P4 + 2 * npb + 2 * nrb + 2;
   return 4 * (floats + ints);
 }
@@ -511,8 +571,30 @@ static bool geom_fits(const Geom& v, int kmax, int P) {
   const int P4 = (P + 3) & ~3;
   const int srp = ((v.sr / 4) % 2 == 1) ? v.sr : v.sr + 4;
   const int tiles = ((P + v.tr - 1) / v.tr) * (P4 / 4);
-  return tiles <= v.na * v.tpb && v.sr * P4 <= v.cw * srp &&
+  return (v.sacc || tiles <= v.na * v.tpb) &&
+         v.sr * P4 <= geom_cw(v, P) * srp &&
          geom_shmem(v, kmax, P) <= 232448;
+}
+
+// The geometry (index into kGeoms) a launch takes, or -1 where none fits
+// the shared memory.
+static int pick_geom(int kmax, int P) {
+  if (P > MAX_P) return geom_fits(kGeoms[4], kmax, P) ? 4 : -1;
+  // KMAX at the default smoothing: 11 in the 49 bucket, 21 in the 97
+  // bucket, 43 in the 193 bucket and the 385 tail's, 57-71 in the
+  // larger tails
+  int g = kmax <= 11 ? 0 : (kmax <= 21 ? 1 : 2);
+  if (!geom_fits(kGeoms[g], kmax, P)) g = 3;
+  return geom_fits(kGeoms[g], kmax, P) ? g : -1;
+}
+
+// The geometry hesaff_patches_group would take for (kmax, P), and the
+// bytes of shared memory its block needs (for the generic geometry's
+// limit, also where it does not fit).
+extern "C" int hesaff_patches_geometry(int kmax, int P, long long* shmem) {
+  const int g = pick_geom(kmax, P);
+  *shmem = (long long)geom_shmem(kGeoms[g < 0 ? 4 : g], kmax, P);
+  return g;
 }
 
 // src: (B, H, W) float32, contiguous.  Per keypoint (K): img_idx, ws
@@ -525,17 +607,12 @@ extern "C" int hesaff_patches_group(
     const float* a22, const int32_t* ws, const float* its, const float* taps,
     const uint8_t* active, int kmax, int K, int P, float* out, int32_t* bad,
     void* stream) {
-  if (B < 1 || H < 2 || W < 2 || kmax < 1 || kmax % 2 == 0 || P < 1 ||
-      P > MAX_P)
+  if (B < 1 || H < 2 || W < 2 || kmax < 1 || kmax % 2 == 0 || P < 1)
     return (int)cudaErrorInvalidValue;
   if (K == 0) return (int)cudaGetLastError();
-  // KMAX at the default smoothing: 11 in the 49 bucket, 21 in the 97
-  // bucket, 43 in the 193 bucket and the 385 tail's, 57-71 in the
-  // larger tails
-  int g = kmax <= 11 ? 0 : (kmax <= 21 ? 1 : 2);
-  if (!geom_fits(kGeoms[g], kmax, P)) g = 3;
+  const int g = pick_geom(kmax, P);
+  if (g < 0) return (int)cudaErrorInvalidValue;
   const Geom& v = kGeoms[g];
-  if (!geom_fits(v, kmax, P)) return (int)cudaErrorInvalidValue;
   const size_t shmem = geom_shmem(v, kmax, P);
   cudaError_t err = cudaFuncSetAttribute(
       v.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);

@@ -8,23 +8,45 @@ a device-side counter.  A CPU tensor takes the plain PyTorch version
 (``affine_shape.adapt_batch_plain``); a CUDA tensor launches the kernel
 or raises.  Unlike the TPU kernel it takes the window side as an
 argument, so one kernel serves every octave, including the small ones
-whose window is clamped to the octave size.
+whose window is clamped to the octave size.  The grid side G
+(smm_window_size) picks the instance (``instance``): "g19" for the
+configuration's 19, "generic" for any other G whose grid and mask fit
+the card's shared memory (G <= 107).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from hesaff_tpu_torch.ops import cuda_build
 
-# launches of the CUDA kernel in this process
+# launches of the CUDA kernel in this process, and of its generic
+# instance alone
 LAUNCHES = 0
+GENERIC_LAUNCHES = 0
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = ([_vp, ctypes.c_longlong, ctypes.c_longlong, _i, _i] + [_vp] * 6
              + [_i, _vp] + [_i] * 3 + [_f, _f] + [_vp] * 5)
+
+
+@functools.lru_cache(maxsize=16)
+def instance(G: int) -> str:
+    """The kernel instance grid side G launches: "g19" or "generic" (the
+    kernel's own choice; builds its library); raises where the grid and
+    mask of a block of four warps do not fit the shared memory."""
+    fn = cuda_build.entry("affine_adapt", "hesaff_affine_instance",
+                          [_i, ctypes.POINTER(ctypes.c_longlong)])
+    shmem = ctypes.c_longlong(0)
+    i = fn(G, ctypes.byref(shmem))
+    if i < 0:
+        raise ValueError(f"adapt: a {G} x {G} grid needs {shmem.value} "
+                         "bytes of shared memory a block, over the card's "
+                         "232448")
+    return ("g19", "generic")[i]
 
 
 def adapt_plain(stack, img_idx, src, lx, ly, ratio, active, win, cfg,
@@ -55,7 +77,7 @@ def adapt(stack, img_idx, src, lx, ly, ratio, active, win: int, cfg):
 
 
 def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
-    global LAUNCHES
+    global LAUNCHES, GENERIC_LAUNCHES
     from hesaff_tpu_torch import params
     from hesaff_tpu_torch.affine_shape import AffineResult
 
@@ -73,6 +95,7 @@ def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
     act = active.to(device=dev, dtype=torch.uint8).contiguous()
     mask = params.tables(cfg, str(dev))["smm_mask"]
     G = cfg.smm_window_size
+    generic = instance(G) == "generic"
     ok = torch.empty(K, dtype=torch.int32, device=dev)
     u = torch.empty((K, 4), dtype=torch.float32, device=dev)
     iters = torch.empty(K, dtype=torch.int32, device=dev)
@@ -89,5 +112,6 @@ def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
                  cuda_build.stream(dev))
     cuda_build.check(err, "affine_adapt")
     LAUNCHES += 1
+    GENERIC_LAUNCHES += generic
     return AffineResult(ok=ok.bool(), u11=u[:, 0], u12=u[:, 1],
                         u21=u[:, 2], u22=u[:, 3], iters=iters)

@@ -5,7 +5,9 @@ The kernel (csrc/blur_doh.cu) replaces the TPU kernels
 tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel or raises.  The kernel reads and writes (..., H, W) planes at a
 uniform plane stride, so blur_doh reads a ladder level from, and writes
-the next into, a slot of a (..., L, H, W) stack.
+the next into, a slot of a (..., L, H, W) stack.  The default ladder's
+tap counts (1, 9-15) take the kernel's unrolled instances, any other
+odd count up to MAX_TAPS its generic loop (``instance``).
 """
 
 from __future__ import annotations
@@ -19,9 +21,19 @@ from hesaff_tpu_torch.ops import cuda_build
 from hesaff_tpu_torch.ops.blur import separable_blur
 from hesaff_tpu_torch.ops.hessian import doh
 
-MAX_TAPS = 31
-# launches of the CUDA kernel in this process (both entries)
+MAX_TAPS = 255
+# launches of the CUDA kernel in this process (both entries, every
+# instance), and of the generic instance alone
 LAUNCHES = 0
+GENERIC_LAUNCHES = 0
+
+
+def instance(k: int) -> str:
+    """The kernel instance k taps launch: "unrolled" (k = 1, 9, 11, 13,
+    15) or "generic" (any other odd k <= MAX_TAPS)."""
+    if k % 2 == 0 or not 1 <= k <= MAX_TAPS:
+        raise ValueError(f"blur_doh: {k} taps (odd, <= {MAX_TAPS})")
+    return "unrolled" if k in (1, 9, 11, 13, 15) else "generic"
 
 
 def blur_doh_plain(img: torch.Tensor, taps, norm2: float):
@@ -88,11 +100,10 @@ def _planes(t: torch.Tensor, what: str):
 
 
 def _launch(img, taps, norm2: float, out, resp_out):
-    global LAUNCHES
+    global LAUNCHES, GENERIC_LAUNCHES
     taps = np.asarray(taps, np.float32)
     k = taps.shape[0]
-    if k % 2 == 0 or k > MAX_TAPS:
-        raise ValueError(f"blur_doh: {k} taps (odd, <= {MAX_TAPS})")
+    generic = instance(k) == "generic"
     n, in_stride = _planes(img, "input")
     outs = [out] if resp_out is None else [out, resp_out]
     for o in outs:
@@ -117,3 +128,4 @@ def _launch(img, taps, norm2: float, out, resp_out):
                  cuda_build.stream(img.device))
     cuda_build.check(err, "blur_doh")
     LAUNCHES += 1
+    GENERIC_LAUNCHES += generic

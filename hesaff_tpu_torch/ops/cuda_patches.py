@@ -18,6 +18,11 @@ the blur's replicate-border mass is added at columns 0 and ws - 1.
 ``fold_operator`` builds it; kernel and plain version use the same
 arithmetic.
 
+The kernel picks a tile geometry by (KMAX, P) (``geometry``): four
+for patches of up to 64 px, and a generic one, whose patch accumulates
+in shared memory, for larger patches; a patch whose block would need
+more than the card's 232,448 bytes of shared memory raises.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
 the kernel or raises.
 """
@@ -25,6 +30,7 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,8 +40,12 @@ from hesaff_tpu_torch.ops.warp import check_borders
 from hesaff_tpu_torch.patches import (_device_gauss_taps,
                                       _max_ksize_for_bucket, _warp, true_dims)
 
-# launches of the CUDA kernel in this process
+# launches of the CUDA kernel in this process, and of its generic
+# geometry (patches of more than 64 px) alone
 LAUNCHES = 0
+GENERIC_LAUNCHES = 0
+# the generic geometry's index in csrc/patches_group.cu's kGeoms
+GENERIC_GEOMETRY = 4
 
 # elements of one chunk's (chunk, n, n) workspace in the plain version
 _CHUNK_ELEMS = 1 << 22
@@ -129,8 +139,21 @@ def patches_group(src, img_idx, x, y, a11, a21, a22, ws, its, taps, active,
                    patch_size)
 
 
+@functools.lru_cache(maxsize=256)
+def geometry(kmax: int, patch_size: int):
+    """(index of the kernel's tile geometry, or -1 where none fits; bytes
+    of shared memory its block needs) for a group's KMAX and patch side
+    (builds the kernel's library; cached, as the pair decides it)."""
+    fn = cuda_build.entry("patches_group", "hesaff_patches_geometry",
+                          [ctypes.c_int, ctypes.c_int,
+                           ctypes.POINTER(ctypes.c_longlong)])
+    shmem = ctypes.c_longlong(0)
+    g = fn(kmax, patch_size, ctypes.byref(shmem))
+    return g, shmem.value
+
+
 def _launch(src, img_idx, x, y, a11, a21, a22, ws, its, taps, active, P):
-    global LAUNCHES
+    global LAUNCHES, GENERIC_LAUNCHES
     if (src.dtype != torch.float32 or src.ndim != 3
             or not src.is_contiguous() or src.device != x.device):
         raise ValueError("patches_group: needs a contiguous float32 "
@@ -143,15 +166,19 @@ def _launch(src, img_idx, x, y, a11, a21, a22, ws, its, taps, active, P):
     bad = torch.empty(K, dtype=torch.int32, device=dev)
     if K == 0:
         return out, bad.bool()
+    geom, shmem = geometry(kmax, P)
+    if geom < 0:
+        raise ValueError(
+            f"patches_group: a {P} px patch with KMAX {kmax} needs {shmem} "
+            "bytes of shared memory a block, over the card's 232448")
     i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     args = (i32(img_idx), *(f32(t) for t in (x, y, a11, a21, a22)),
             i32(ws), f32(its), f32(taps),
             active.to(device=dev, dtype=torch.uint8).contiguous())
-    fn = cuda_build.library("patches_group").hesaff_patches_group
-    fn.restype = ctypes.c_int
     vp, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, i, i, i] + [vp] * 10 + [i, i, i, vp, vp, vp]
+    fn = cuda_build.entry("patches_group", "hesaff_patches_group",
+                          [vp, i, i, i] + [vp] * 10 + [i, i, i, vp, vp, vp])
     with torch.cuda.device(dev):
         err = fn(cuda_build.ptr(src), B, H, W,
                  *(cuda_build.ptr(t) for t in args), kmax, K, P,
@@ -159,6 +186,7 @@ def _launch(src, img_idx, x, y, a11, a21, a22, ws, its, taps, active, P):
                  cuda_build.stream(dev))
     cuda_build.check(err, "patches_group")
     LAUNCHES += 1
+    GENERIC_LAUNCHES += geom == GENERIC_GEOMETRY
     return out, bad.bool()
 
 

@@ -187,7 +187,8 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
     rectified (a12 == 0).  valid_hw: None, or (B, 2) true sizes of
     edge-padded images, for the corner pre-check.  Returns (patches (K,
     P, P), ok (K,)) with ok = False where the patch touches the image
-    boundary.
+    boundary.  A blur-branch bucket raises ValueError at an even patch
+    side, on any device.
 
     On a CUDA tensor the blur-branch keypoints go through the fused
     patch kernel (ops/cuda_patches) and only direct-branch keypoints
@@ -200,6 +201,11 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
     if active is None:
         active = torch.ones(K, dtype=torch.bool, device=dev)
     use_blur = (bucket - 2) / P > cfg.oversample_cutoff
+    if use_blur and P % 2 == 0:
+        raise ValueError(
+            f"patch_size {P} is even: the bucket path's blur branch "
+            f"subsamples P + 1 points a side (i in [-P/2, P/2]); use an "
+            f"odd patch_size, or dist.extraction_step_grouped")
     smallest_ws = max(prev_bucket + 1, _min_workspace(cfg))
     mixed = use_blur and smallest_ws <= cfg.oversample_cutoff * P + 2
     if images.device.type == "cuda":

@@ -985,3 +985,276 @@ def test_one_rank_nccl_matches_single_device(dev, nccl_group):
     assert e1 == e0
     for k in ("cam_rvec", "cam_tvec", "points"):
         assert torch.equal(getattr(s1, k), getattr(s0, k)), k
+
+
+# Configurations other than the default: the kernels' generic instances
+# (K6 beyond 64 px or another bin layout, K5 beyond 64 px, K1 beyond 31
+# taps, K4 on grids other than 19) against their plain versions at the
+# tolerances above, and the default shapes still on their own instances.
+
+@pytest.mark.parametrize("P", [65, 96, 128])
+@pytest.mark.parametrize("sb,ob", [(4, 8), (3, 8), (4, 6)])
+def test_sift_kernel_generic(dev, P, sb, ob):
+    """K6's generic instance, both entries: within one step and >= 99%
+    exact of the plain version; the masked entry equal to the float
+    entry on valid rows and zero elsewhere."""
+    import dataclasses
+
+    from hesaff_tpu_torch import sift
+    from hesaff_tpu_torch.ops import cuda_sift
+
+    cfg = dataclasses.replace(CFG, patch_size=P, spatial_bins=sb,
+                              orientation_bins=ob)
+    assert cuda_sift.instance(P, sb, ob) == "generic"
+    rng = np.random.default_rng(P + sb * ob)
+    K = 203
+    p = np.clip(smooth_stacks(rng, K, P, P), 0, 255).astype(np.float32)
+    p[0] = 55.0
+    pt = torch.as_tensor(p, device=dev)
+    valid = torch.as_tensor(rng.random(K) < 0.6, device=dev)
+    before = (cuda_sift.LAUNCHES, cuda_sift.GENERIC_LAUNCHES)
+    out = cuda_sift.sift_descriptors(pt, cfg)
+    m = cuda_sift.describe_masked(pt, valid, cfg)
+    ref = sift.sift_descriptors(pt, cfg)
+    torch.cuda.synchronize()
+    assert (cuda_sift.LAUNCHES, cuda_sift.GENERIC_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    nb = sb * sb * ob
+    assert tuple(out.shape) == (K, nb) and tuple(m.shape) == (K, nb)
+    fin = torch.isfinite(ref).all(dim=1)
+    diff = (out[fin] - ref[fin]).abs()
+    assert float(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.99
+    assert torch.equal(m[valid], out[valid].to(torch.uint8))
+    assert not bool(m[~valid].any())
+
+
+@pytest.mark.parametrize("P,sb,ob", [(41, 3, 8), (41, 4, 6), (41, 4, 1),
+                                     (41, 5, 8), (20, 3, 8)])
+def test_sift_kernel_generic_bin_layouts(dev, P, sb, ob):
+    """K6's generic instance on bin layouts the 41 px instance does not
+    take (sb * ob not dividing 32, one orientation bin, more than 128
+    bins), also on a patch of fewer than 32 px."""
+    import dataclasses
+
+    from hesaff_tpu_torch import sift
+    from hesaff_tpu_torch.ops import cuda_sift
+
+    cfg = dataclasses.replace(CFG, patch_size=P, spatial_bins=sb,
+                              orientation_bins=ob)
+    assert cuda_sift.instance(P, sb, ob) == "generic"
+    rng = np.random.default_rng(sb * 10 + ob)
+    p = np.clip(smooth_stacks(rng, 97, P, P), 0, 255).astype(np.float32)
+    pt = torch.as_tensor(p, device=dev)
+    out = cuda_sift.sift_descriptors(pt, cfg)
+    ref = sift.sift_descriptors(pt, cfg)
+    torch.cuda.synchronize()
+    diff = (out - ref).abs()
+    assert float(diff.max()) <= 1
+    assert float((diff == 0).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("P", [65, 96, 128])
+@pytest.mark.parametrize("bucket,smin,smax", [
+    (49, 1.6, 4.2), (193, 9.5, 18.0), (385, 19.0, 36.0)])
+def test_patches_group_kernel_generic(dev, P, bucket, smin, smax):
+    """K5's generic geometry (the patch accumulated in shared memory)
+    on patches of more than 64 px, in the serving path's full-resolution
+    groups, at each group's KMAX for P."""
+    import dataclasses
+
+    from hesaff_tpu_torch.ops import cuda_patches
+
+    cfg = dataclasses.replace(CFG, patch_size=P)
+    rng = np.random.default_rng(bucket + P)
+    B, H, W = 2, 640, 800
+    images = torch.as_tensor(smooth_stacks(rng, B, H, W), device=dev)
+    kp = _keypoints(rng, dev, 96, B, H, W, smin, smax, margin=60.0)
+    args, _ = cuda_patches.group_args(
+        images, bucket, *(kp[k] for k in ("img_idx", "x", "y", "s", "a11",
+                                          "a21", "a22")), cfg, kp["active"])
+    geom, _ = cuda_patches.geometry(args[9].shape[1], P)
+    assert geom == cuda_patches.GENERIC_GEOMETRY
+    before = cuda_patches.GENERIC_LAUNCHES
+    _kernel_vs_plain(args)
+    assert cuda_patches.GENERIC_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("P", [65, 96, 128])
+@pytest.mark.parametrize("prev,bsize", [(385, 641), (641, 1025)])
+def test_patches_group_kernel_generic_tails(dev, P, prev, bsize):
+    """The pyramid-tail groups at patch sides over 64 px (their KMAX
+    from bucket_src at P)."""
+    import dataclasses
+
+    from hesaff_tpu_torch import dist, pyramid
+    from hesaff_tpu_torch.ops import cuda_patches
+
+    cfg = dataclasses.replace(CFG, patch_size=P)
+    ps, octave, bucket_src = dist.tail_source_plan(bsize, 1.0)
+    rng = np.random.default_rng(bsize + P)
+    B, H, W = 1, 1280, 1600
+    images = torch.as_tensor(smooth_stacks(rng, B, H, W), device=dev)
+    src = pyramid.scaled_first_level(images, cfg, octave).contiguous()
+    kp = _keypoints(rng, dev, 48, B, H, W, (prev - 1) / (2 * cfg.mr_size),
+                    (bsize - 3) / (2 * cfg.mr_size), margin=0.0)
+    kp["x"] = W / 2 + (kp["x"] / W - 0.5) * 160.0
+    kp["y"] = H / 2 + (kp["y"] / H - 0.5) * 160.0
+    kp["a21"] = 0.25 * kp["a21"]
+    kp["a11"] = 1.0 + 0.25 * (kp["a11"] - 1.0)
+    kp["a22"] = 1.0 / kp["a11"]
+    args, _ = cuda_patches.group_args(
+        src, bucket_src, *(kp[k] for k in ("img_idx", "x", "y", "s", "a11",
+                                           "a21", "a22")), cfg,
+        kp["active"], ps=ps, orig_hw=(H, W))
+    assert cuda_patches.geometry(args[9].shape[1], P)[0] == (
+        cuda_patches.GENERIC_GEOMETRY)
+    _kernel_vs_plain(args)
+
+
+@pytest.mark.parametrize("k", [33, 37, 63, 127])
+@pytest.mark.parametrize("shape", [(3, 17, 16), (2, 61, 47), (1, 70, 200)])
+def test_blur_doh_kernel_long_taps(dev, shape, k):
+    """K1's generic instance past 31 taps (its halo and shared memory
+    sized at run time, opt-in past 48 KB), blur_doh and blur-only,
+    bit-equal to the plain version, as the short taps are."""
+    from hesaff_tpu_torch.ops import cuda_blur
+    from hesaff_tpu_torch.ops.blur import gaussian_taps
+
+    assert cuda_blur.instance(k) == "generic"
+    rng = np.random.default_rng(k)
+    img = torch.as_tensor((rng.random(shape) * 255).astype(np.float32),
+                          device=dev)
+    taps = gaussian_taps((k - 1) / 6.0, k)
+    before = (cuda_blur.LAUNCHES, cuda_blur.GENERIC_LAUNCHES)
+    b, r = cuda_blur.blur_doh(img, taps, 6.5536)
+    only = cuda_blur.blur(img, taps)
+    pb, pr = cuda_blur.blur_doh_plain(img, taps, 6.5536)
+    torch.cuda.synchronize()
+    assert (cuda_blur.LAUNCHES, cuda_blur.GENERIC_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(b, pb) and torch.equal(r, pr)
+    assert torch.equal(only, pb)
+
+
+@pytest.mark.parametrize("G", [33, 63])
+def test_affine_kernel_generic_grids(dev, G):
+    """K4's generic instance on grids over 31 (above 49 its block takes
+    more than 48 KB of shared memory) against the plain loop."""
+    from hesaff_tpu_torch.ops import cuda_affine
+
+    args = _affine_case(np.random.default_rng(G), dev, G, 301, H=160,
+                        W=200)
+    assert cuda_affine.instance(G) == "generic"
+    before = cuda_affine.GENERIC_LAUNCHES
+    out = cuda_affine.adapt(*args)
+    ref = cuda_affine.adapt_plain(*args)
+    torch.cuda.synchronize()
+    assert cuda_affine.GENERIC_LAUNCHES == before + 1
+    assert_affine_parity(ref, out, args[6], min_matched=20)
+
+
+def test_default_shapes_keep_their_instances(dev):
+    """The default configuration launches the instances it launched
+    before this slice: K6 "warp64", K5 geometries 0-3, K1 the unrolled
+    ones, K4 "g19"; no generic instance runs."""
+    from hesaff_tpu_torch import dist, extract, patches
+    from hesaff_tpu_torch.ops import (cuda_affine, cuda_blur, cuda_patches,
+                                      cuda_sift)
+
+    assert cuda_sift.instance(41, 4, 8) == "warp64"
+    assert cuda_affine.instance(19) == "g19"
+    assert {cuda_blur.instance(k) for k in (1, 9, 11, 13, 15)} == {
+        "unrolled"}
+    for bsize in (49, 97, 193, 385):
+        kmax = patches._max_ksize_for_bucket(bsize, 41, 1.5)
+        assert 0 <= cuda_patches.geometry(kmax, 41)[0] < 4
+    for bsize in (641, 1025):
+        bsrc = dist.tail_source_plan(bsize, 1.0)[2]
+        kmax = patches._max_ksize_for_bucket(bsrc, 41, 1.5)
+        assert 0 <= cuda_patches.geometry(kmax, 41)[0] < 4
+    before = (cuda_sift.GENERIC_LAUNCHES, cuda_patches.GENERIC_LAUNCHES,
+              cuda_blur.GENERIC_LAUNCHES, cuda_affine.GENERIC_LAUNCHES)
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "data",
+                             "synth_200x160.npz"))
+    assert extract(d["gray"], CFG, device=dev).n > 40
+    assert (cuda_sift.GENERIC_LAUNCHES, cuda_patches.GENERIC_LAUNCHES,
+            cuda_blur.GENERIC_LAUNCHES, cuda_affine.GENERIC_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("kw", [dict(patch_size=65), dict(patch_size=97),
+                                dict(initial_sigma=4.0),
+                                dict(smm_window_size=33),
+                                dict(spatial_bins=3)])
+def test_extract_on_gpu_matches_cpu_configs(dev, kw):
+    """extract at configurations other than the default, on the card
+    against its CPU run (the generic instances on the path), with
+    test_extract_on_gpu_matches_cpu's rule."""
+    import dataclasses
+
+    from hesaff_tpu_torch import extract
+
+    cfg = dataclasses.replace(CFG, **kw)
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "data",
+                             "synth_200x160.npz"))
+    gpu = extract(d["gray"], cfg, device=dev)
+    cpu = extract(d["gray"], cfg, device="cpu")
+    assert abs(gpu.n - cpu.n) <= 1 and gpu.n > 5
+    nb = cfg.spatial_bins ** 2 * cfg.orientation_bins
+    assert gpu.desc.shape == (gpu.n, nb)
+    for i in range(cpu.n):
+        dd = np.hypot(gpu.x - cpu.x[i], gpu.y - cpu.y[i])
+        j = int(dd.argmin())
+        assert dd[j] < 0.01
+        assert np.abs(gpu.desc[j].astype(int)
+                      - cpu.desc[i].astype(int)).max() <= 2
+
+
+def test_extract_at_even_patch_side_raises_on_gpu(dev):
+    """On the card as on the CPU, the bucket path raises at an even
+    patch side (K5 would take it; the plain subsample does not)."""
+    import dataclasses
+
+    from hesaff_tpu_torch import extract
+
+    gray = np.zeros((64, 64), np.float32)
+    gray[20:40, 24:44] = 200.0
+    with pytest.raises(ValueError, match="patch_size 96 is even"):
+        extract(gray, dataclasses.replace(CFG, patch_size=96), device=dev)
+
+
+@pytest.mark.parametrize("P", [65, 96])
+def test_grouped_on_gpu_matches_cpu_patch_sizes(dev, P):
+    """The grouped path at patch sides over 64 px (the direct branch
+    live beside K5's generic geometry) on the card against its CPU
+    run."""
+    import dataclasses
+    import sys
+
+    from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.ops import cuda_patches, cuda_sift
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
+    import gen_images
+
+    cfg = dataclasses.replace(CFG, patch_size=P)
+    B, H, W = 2, 240, 320
+    imgs = np.stack([
+        gen_images.synth_image(W, H, seed=s).astype(np.float32).mean(-1)
+        for s in range(B)])
+    groups = dist.default_group_spec(H, W, cfg, per_image_cap=512, batch=B)
+    before = (cuda_patches.GENERIC_LAUNCHES, cuda_sift.GENERIC_LAUNCHES)
+    gpu = dist.extraction_step_grouped(imgs, cfg, groups, device=dev)
+    cpu = dist.extraction_step_grouped(imgs, cfg, groups, device="cpu")
+    assert cuda_patches.GENERIC_LAUNCHES > before[0]
+    assert cuda_sift.GENERIC_LAUNCHES == before[1] + 1
+    gv, cv = gpu.valid.cpu(), cpu.valid
+    assert abs(int(gv.sum()) - int(cv.sum())) <= 1 and int(cv.sum()) > 20
+    assert int(gpu.overflow) == int(cpu.overflow) == 0
+    gx, gy = gpu.x.cpu()[gv].numpy(), gpu.y.cpu()[gv].numpy()
+    gd = gpu.desc.cpu()[gv].numpy().astype(int)
+    cd = cpu.desc[cv].numpy().astype(int)
+    for i, (x, y) in enumerate(zip(cpu.x[cv].numpy(), cpu.y[cv].numpy())):
+        j = int(np.argmin(np.hypot(gx - x, gy - y)))
+        assert np.hypot(gx[j] - x, gy[j] - y) < 0.01
+        assert np.abs(gd[j] - cd[i]).max() <= 2
