@@ -71,14 +71,25 @@ ValueError) and the grouped path at 65 and 96 on images 0-3, extract_batch at in
 smm_window_size 33 on images 0-1 (image 0 of each gated against a CPU
 run; each generic instance must launch there, and none in phases
 1-10), and `cli extract --patch-size 65` on the card and on the CPU,
-the two files gated.  Exits non-zero on any failed phase; on
+the two files gated.  Phase 12 runs the collection tools' paths
+(tools/torch_retrieval_bench.py and tools/torch_fleet_bench.py):
+retrieval at BASELINE.json config 4's widths, 1,024 256x208 images in
+batches of 32 through the grouped path, the index on the card and 32
+rotation-warped queries, each of whose sources must rank first; batch 0
+against CPU runs (its overflow equal to the grouped path's there, its
+descriptors an image equal to the bucket step's, image 0 through
+bench.py's gate); K1, K2 and K6 launched once a level, octave and call;
+one query's knn2 timed against its bound; then the fleet tool over the
+16 bench images written as PNG and their 640x512 crops (no failure,
+each file within phase 8's padded-mode tolerance of extract_batch on
+the card).  Exits non-zero on any failed phase; on
 success the last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
 and the line before it holds the per-kernel record: launches in one
-phase-6 call (every kernel runs there) and in phases 4, 5, 6, 7, 8, 10
-and 11
+phase-6 call (every kernel runs there) and in phases 4, 5, 6, 7, 8, 10,
+11 and 12
 (checked: K1 once a ladder level plus the initial blur, K6 once), max
 abs error against the plain version, the kernel's and the plain
 version's ms (one pair of CUDA events around back-to-back launches, 20
@@ -149,6 +160,18 @@ CFG_SIDES = (65, 96, 128)
 CFG_BINS = ((4, 8), (3, 8), (4, 6))
 CFG_TAPS = (37, 63)
 CFG_GRIDS = (33, 63)
+
+# phase 12: the collection tools' paths (tools/torch_retrieval_bench.py
+# and tools/torch_fleet_bench.py).  Retrieval at BASELINE.json config
+# 4's widths and the JAX tool's defaults: RET_N corpus images (seeds
+# 0..RET_N-1) at RET_W x RET_H, batch RET_BATCH, per-image cap RET_CAP,
+# RET_QUERIES rotation-warped queries; the fleet over the 16 bench
+# images written as PNG and their [0:CROP_H, 0:CROP_W] crops (two shape
+# buckets), batch FLEET_BATCH
+RET_N, RET_QUERIES, RET_BATCH = 1024, 32, 32
+RET_H, RET_W, RET_CAP = 208, 256, 256
+CROP_H, CROP_W = 512, 640
+FLEET_BATCH = 8
 
 KERNELS = (
     # name, source, TPU kernel it replaces
@@ -339,13 +362,20 @@ def _synth_rgb(width: int, height: int, seed: int) -> np.ndarray:
 def start_images(ex):
     """Futures of the imagery, made in worker processes: bench.py's 16
     800x640 images (seeds 0..15, channel-mean gray), the tiles of
-    phase 6's mosaics (seeds LARGE_SEED on, unused by bench.py) and
-    phase 8's 16 RGB images (seeds FLEET_SEED on)."""
+    phase 6's mosaics (seeds LARGE_SEED on, unused by bench.py),
+    phase 8's 16 RGB images (seeds FLEET_SEED on) and phase 12's
+    retrieval corpus (seeds 0..RET_N-1 at RET_W x RET_H, the retrieval
+    tool's corpus_image)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_retrieval_bench as rb
+
     n_tiles = LARGE_BATCH * TILES_Y * TILES_X
     return ([ex.submit(_synth, s) for s in range(BATCH)],
             [ex.submit(_synth, LARGE_SEED + k) for k in range(n_tiles)],
             [ex.submit(_synth_rgb, *FLEET_SIZES[k // 4], FLEET_SEED + k)
-             for k in range(16)])
+             for k in range(16)],
+            [ex.submit(rb.corpus_image, s, RET_W, RET_H)
+             for s in range(RET_N)])
 
 
 def mosaic(tiles: np.ndarray) -> np.ndarray:
@@ -358,10 +388,11 @@ def mosaic(tiles: np.ndarray) -> np.ndarray:
 
 
 def gather_images(futures):
-    bench, tiles, fleet = futures
+    bench, tiles, fleet, corpus = futures
     return (np.stack([f.result() for f in bench]),
             mosaic(np.stack([f.result() for f in tiles])),
-            [f.result() for f in fleet])
+            [f.result() for f in fleet],
+            np.stack([f.result() for f in corpus]))
 
 
 def card_name_and_limit() -> str:
@@ -370,6 +401,21 @@ def card_name_and_limit() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class Clock:
+    """Seconds on the host clock, each read after the device finished
+    its queued work (the collection tools' clock)."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __call__(self) -> float:
+        import torch
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
 
 
 def phase_build() -> None:
@@ -2417,6 +2463,165 @@ def phase_configs(images_np, cfg, dev, card: str):
     return rec, launches, generic
 
 
+def phase_collection(corpus_np, images_np, dev, card: str) -> dict:
+    """Phase 12, the collection tools' paths on the card.  Returns the
+    launches of the two runs (summed).
+
+    Retrieval (tools/torch_retrieval_bench.run, the default
+    HesaffConfig): RET_N corpus images in batches of RET_BATCH through
+    the grouped path, the index kept on the card, RET_QUERIES warped
+    queries.  Checks: every query's source ranked first (a miss is
+    logged beside that query's CPU run and fails the phase); the index
+    a CUDA tensor; batch 0's overflow equal to a CPU run of the grouped
+    path on the same images, its descriptors an image equal to the CPU
+    bucket step's (the tool's CPU path) and its image 0 through
+    bench.py's gate against that run; K1, K2 and K6 launched exactly
+    once a ladder level (plus the initial blur), a dense octave and a
+    call, K4 and K5 launched, K3 not (every octave is under 2^23 px).
+    Logs the tool's JSON line and the device ms of one query's knn2
+    against the index with its bound.
+
+    Fleet (tools/torch_fleet_bench.run, bench_config as phase 8): the
+    16 bench images written as PNG and their [0:CROP_H, 0:CROP_W]
+    crops, batch FLEET_BATCH.  Checks: no file failed, every kernel but
+    K3 launched, each file's .npz within the padded-mode tolerance of
+    phase 8 of an unpadded extract_batch of its decoded image on the
+    card.  Logs the tool's JSON line (img/s, desc/s, decode overlap)."""
+    import shutil
+
+    import torch
+
+    from hesaff_tpu_torch import HesaffConfig, dist, extract_batch, pyramid
+    from hesaff_tpu_torch.match import knn2
+    from hesaff_tpu_torch.retrieval import rank_images
+    from hesaff_tpu_torch.sift_io import load_image_gray
+
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import torch_fleet_bench
+    import torch_retrieval_bench as rb
+
+    cfg = HesaffConfig()
+    n = len(corpus_np)
+    plan = [(qi, rb.warp_query(corpus_np[qi], ang))
+            for qi, ang in rb.query_plan(n, RET_QUERIES)]
+    torch.cuda.synchronize()
+    reset_counts()
+    rec, det = rb.run(corpus_np, plan, RET_BATCH, RET_CAP, dev, cfg=cfg)
+    torch.cuda.synchronize()
+    ret_launches = read_counts()
+    log(f"phase 12 retrieval on {card}: {json.dumps(rec)}")
+    index = det["index"]
+    check(index.desc.is_cuda and index.desc.device == dev,
+          f"retrieval: index on {index.desc.device}, not the card")
+    check(rec["descriptors"] > 0 and np.isfinite(
+        [rec[k] for k in ("extract_img_per_s", "query_latency_s")]).all(),
+          f"retrieval: record {rec}")
+    calls = 1 + n // RET_BATCH + len(plan)
+    per_k1 = ((cfg.num_scales + 2) * cfg.num_octaves(RET_H, RET_W)
+              + (pyramid.first_level_taps(cfg) is not None))
+    want = {"blur_doh": calls * per_k1,
+            "detect_walk": calls * dense_octaves(RET_H, RET_W, cfg),
+            "sift_desc": calls, "detect_maps": 0}
+    for k, v in ret_launches.items():
+        if k in want:
+            check(v == want[k], f"retrieval: kernel {k} launched {v} times, "
+                  f"not {want[k]}")
+        else:
+            check(v > 0, f"retrieval: kernel {k} never launched")
+    misses = [(qi, r) for qi, r in det["ranked"] if not r or r[0][0] != qi]
+    check(not misses, f"retrieval: {len(misses)} of {len(plan)} queries' "
+          "sources not ranked first")
+    cpu = torch.device("cpu")
+    if misses:
+        step_cpu = rb.extraction_step(RET_H, RET_W, RET_BATCH, RET_CAP, cfg,
+                                      cpu)
+        cpu_index = index._replace(desc=index.desc.cpu())
+        imgs = dict(plan)
+        for qi, r in misses:
+            out = step_cpu(torch.as_tensor(imgs[qi][None]))
+            rc = rank_images(cpu_index, rb.query_descriptors(out),
+                             top_k=5, device=cpu)
+            log(f"  query {qi} missed on the card, ranked {r}; its CPU run "
+                f"ranked {rc}")
+
+    # batch 0 on the card against the CPU: the same grouped path (its
+    # overflow), and the tool's CPU path, the bucket step (bench.py's
+    # gate; equal descriptors an image).  The bucket step also counts a
+    # keypoint whose workspace is above its last bucket as overflow; the
+    # grouped path's last group takes it, and its border check drops it
+    t0 = time.perf_counter()
+    b0 = det["batch0"]
+    host0 = torch.as_tensor(corpus_np[:RET_BATCH])
+    groups = dist.default_group_spec(RET_H, RET_W, cfg, per_image_cap=RET_CAP,
+                                     batch=RET_BATCH)
+    grouped0 = dist.extraction_step_grouped(host0, cfg, groups, device="cpu")
+    buckets = dist.default_bucket_spec(RET_H, RET_W, cfg,
+                                       per_image_cap=RET_CAP, batch=RET_BATCH)
+    cpu0 = dist.extraction_step_staged(host0, cfg, buckets, device="cpu")
+    check(int(b0.overflow) == int(grouped0.overflow),
+          f"retrieval batch 0: overflow {int(b0.overflow)} on the card, "
+          f"{int(grouped0.overflow)} in the CPU's grouped run")
+    per_image = lambda d: np.bincount(d.img_idx[d.valid].cpu().numpy(),
+                                      minlength=RET_BATCH)
+    diff = per_image(b0) - per_image(cpu0)
+    check(not diff.any(), f"retrieval batch 0: descriptors an image differ "
+          f"from the CPU bucket step's by {diff.tolist()}")
+    log(f"  batch 0 ({RET_BATCH} images): {int(b0.valid.sum())} descriptors "
+        f"on the card, {int(grouped0.valid.sum())} in the CPU grouped run, "
+        f"{int(cpu0.valid.sum())} in the CPU bucket step "
+        f"({time.perf_counter() - t0:.1f} s); overflow {int(b0.overflow)} "
+        f"/ {int(grouped0.overflow)} / {int(cpu0.overflow)}; launches "
+        f"{ret_launches}")
+    _gate(_image_features(b0, 0), _image_features(cpu0, 0), "phase 12")
+
+    # one query's knn2 against the index on the card
+    step = rb.extraction_step(RET_H, RET_W, RET_BATCH, RET_CAP, cfg, dev)
+    q = rb.query_descriptors(step(torch.as_tensor(plan[0][1][None],
+                                                  device=dev)))
+    N, M = q.shape[0], index.desc.shape[0]
+    ms = timed(lambda: knn2(q, index.desc))
+    b = bound(nbytes(q, index.desc) + N * 12, 2.0 * N * M * 128)
+    log(f"  knn2 of one query ({N} rows padded) against the {M}-row index: "
+        f"{ms:.4f} ms (bound {b['bound_ms']:.4f} ms by {b['bound_by']})")
+
+    # the fleet tool over the bench images as PNG and their crops
+    root = os.path.join(ROOT, "build", "chip_smoke", "collection")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    full, crop = [], []
+    for k, img in enumerate(images_np):
+        g = np.clip(np.round(img), 0, 255).astype(np.uint8)
+        full.append(os.path.join(root, f"bench_{k:02d}.png"))
+        torch_fleet_bench.write_png_gray(full[-1], g)
+        crop.append(os.path.join(root, f"crop_{k:02d}.png"))
+        torch_fleet_bench.write_png_gray(crop[-1], g[:CROP_H, :CROP_W])
+    out = os.path.join(root, "out")
+    fcfg = bench_config()
+    torch.cuda.synchronize()
+    reset_counts()
+    frec = torch_fleet_bench.run(full + crop, out, FLEET_BATCH, dev,
+                                 cfg=fcfg)
+    torch.cuda.synchronize()
+    fleet_launches = read_counts()
+    log(f"phase 12 fleet on {card}: {json.dumps(frec)}; launches "
+        f"{fleet_launches}")
+    check(frec["failed"] == 0 and frec["images"] == len(full) + len(crop),
+          f"fleet tool: {frec['images']} done, {frec['failed']} failed")
+    for k, v in fleet_launches.items():
+        check((v == 0) if k == "detect_maps" else (v > 0),
+              f"fleet tool: kernel {k} launched {v} times")
+    shares = []
+    for paths in (full, crop):
+        imgs = np.stack([load_image_gray(p) for p in paths])
+        for p, ref in zip(paths, extract_batch(imgs, fcfg, device=dev)):
+            base = os.path.splitext(os.path.basename(p))[0]
+            got = _features_npz(os.path.join(out, base + ".npz"))
+            shares.append(_padded_agree(ref, got, f"fleet tool {base}", dev))
+    log(f"  each file against its unpadded extract_batch: matched share min "
+        f"{min(shares):.4f}, mean {np.mean(shares):.4f} (>= 0.97)")
+    return {k: ret_launches[k] + fleet_launches[k] for k in ret_launches}
+
+
 _SPANS = ("phase A", "group ", "direct branch", "SIFT")
 
 
@@ -2504,7 +2709,8 @@ def main() -> int:
         futures = start_images(ex)            # made while nvcc builds
         try:
             phase_build()
-            images_np, large_np, fleet_rgb = gather_images(futures)
+            images_np, large_np, fleet_rgb, corpus_np = gather_images(
+                futures)
         except BaseException:
             ex.shutdown(cancel_futures=True)
             raise
@@ -2512,8 +2718,11 @@ def main() -> int:
           f"bench imagery shape {images_np.shape}")
     check(large_np.shape == (LARGE_BATCH, LARGE_H, LARGE_W),
           f"large imagery shape {large_np.shape}")
+    check(corpus_np.shape == (RET_N, RET_H, RET_W),
+          f"retrieval corpus shape {corpus_np.shape}")
     log(f"  imagery: bench {images_np.shape}, large {large_np.shape} "
-        f"({LARGE_BATCH * TILES_Y * TILES_X} tiles) in "
+        f"({LARGE_BATCH * TILES_Y * TILES_X} tiles), retrieval corpus "
+        f"{corpus_np.shape} in "
         f"{time.perf_counter() - t0:.1f} s with the build")
     cfg = bench_config()
     walls = {}
@@ -2549,6 +2758,8 @@ def main() -> int:
     del dense
     rec11, launches["11"], generic11 = run("11", phase_configs, images_np,
                                            cfg, dev, card)
+    launches["12"] = run("12", phase_collection, corpus_np, images_np, dev,
+                         card)
     log("  phase walls (s): "
         + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     if failures:

@@ -191,3 +191,26 @@ def adapt_flat(blur_stacks: torch.Tensor, img_idx, src_level, x, y, s,
     return cuda_affine.adapt(*adapt_args(blur_stacks, img_idx, src_level,
                                          x, y, s, pixel_distance, cfg,
                                          active))
+
+
+def adapt_compacted(blur_stack: torch.Tensor, src_level, x, y, s,
+                    pixel_distance: float, cfg: HesaffConfig,
+                    active=None) -> AffineResult:
+    """Adaptation of one image's compacted keypoints of one octave:
+    blur_stack (L, H, W), src_level / x / y / s (K,) (single-image form
+    of adapt_flat)."""
+    return adapt_flat(blur_stack[None],
+                      torch.zeros(x.shape, dtype=torch.int32,
+                                  device=x.device),
+                      src_level, x, y, s, pixel_distance, cfg, active=active)
+
+
+def adapt_level(blur: torch.Tensor, x, y, s, pixel_distance: float,
+                cfg: HesaffConfig) -> AffineResult:
+    """Adaptation of one level's keypoints against its prevBlur.
+
+    blur: (H, W), the blur level BELOW the detection level (the
+    reference's prevBlur quirk, pyramid.cpp:203); x, y, s: (K,).
+    """
+    src = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    return adapt_compacted(blur[None], src, x, y, s, pixel_distance, cfg)

@@ -163,6 +163,10 @@ def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
     adds no keypoints (near-edge affine windows may read replicated
     padding instead of the unpadded run's zeros: the documented
     tolerance of the mode).
+
+    Each Features.desc is (n, sb*sb*ob) uint8, an image with no
+    descriptor included (0, sb*sb*ob).  Here the port departs from the
+    JAX package, whose empty batch gives (0, 128) at any bin layout.
     """
     images = torch.as_tensor(images, dtype=torch.float32,
                              device=resolve_device(images, device))
@@ -222,7 +226,8 @@ def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
         pin = patches[torch.as_tensor(described, device=images.device)]
         descs = sift_descriptors(pin, cfg).cpu().numpy().astype(np.uint8)
     else:
-        descs = np.zeros((0, 128), np.uint8)
+        descs = np.zeros((0, cfg.spatial_bins ** 2 * cfg.orientation_bins),
+                         np.uint8)
 
     feats_out = []
     di = img_idx[described]

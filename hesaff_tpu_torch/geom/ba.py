@@ -1,7 +1,8 @@
 """Schur-complement bundle adjustment (Levenberg-Marquardt).
 
 Port of ``hesaff_tpu/geom/ba.py`` on tensors of any device, in float32
-with TF32 off (``match.full_f32``) around every product and solve:
+with TF32 off (``match.full_f32``) around every product and solve (a
+float64 problem stays float64 in both forms):
 
   * residuals and Jacobians: one function of an observation's 9 local
     degrees of freedom, differentiated by ``torch.func.jacfwd`` under
@@ -274,12 +275,15 @@ def problem_to_tracks(p: BAProblem, track_cap: int | None = None,
 
     Returns (BATracks, n_dropped): observations beyond track_cap per
     point are dropped and counted.  Points are padded with zero-weight
-    slots to a multiple of pad_points_multiple.
+    slots to a multiple of pad_points_multiple.  The tracks are float64
+    where p.points is, else float32 (the JAX package's are always
+    float32).
     """
     h = lambda t: t.detach().cpu().numpy()
+    ft = np.float64 if p.points.dtype == torch.float64 else np.float32
     cam_idx, pt_idx = h(p.cam_idx), h(p.pt_idx)
-    uv = h(p.uv).astype(np.float32)
-    w = h(p.w).astype(np.float32)
+    uv = h(p.uv).astype(ft)
+    w = h(p.w).astype(ft)
     P = int(p.points.shape[0])
 
     live = w > 0
@@ -296,16 +300,16 @@ def problem_to_tracks(p: BAProblem, track_cap: int | None = None,
     Ppad = ((P + pad_points_multiple - 1)
             // pad_points_multiple) * pad_points_multiple
     cam_t = np.zeros((Ppad, T), np.int32)
-    uv_t = np.zeros((Ppad, T, 2), np.float32)
-    w_t = np.zeros((Ppad, T), np.float32)
+    uv_t = np.zeros((Ppad, T, 2), ft)
+    w_t = np.zeros((Ppad, T), ft)
     rows, cols = pts_s[keep], slot[keep]
     src = np.flatnonzero(live)[order][keep]
     cam_t[rows, cols] = cam_idx[src]
     uv_t[rows, cols] = uv[src]
     w_t[rows, cols] = w[src]
 
-    points = np.zeros((Ppad, 3), np.float32)
-    points[:P] = h(p.points).astype(np.float32)
+    points = np.zeros((Ppad, 3), ft)
+    points[:P] = h(p.points).astype(ft)
     dev = p.points.device
     t = lambda a: torch.as_tensor(a, device=dev)
     return BATracks(

@@ -181,6 +181,11 @@ def write_sift(path: str, u, v, e00, e01, e11, desc) -> bool:
     n = len(u)
     arrs = [np.ascontiguousarray(a, np.float64) for a in (u, v, e00, e01, e11)]
     d = np.ascontiguousarray(desc, np.uint8)
+    # hesaff_write_sift reads n rows of 128 bytes and n of each field
+    if d.shape != (n, 128) or any(a.shape != (n,) for a in arrs):
+        raise ValueError(f"native.write_sift: desc {d.shape} and fields "
+                         f"{[a.shape for a in arrs]} are not (n, 128) and "
+                         f"(n,) with n = {n}")
     rc = lib.hesaff_write_sift(
         path.encode(), n,
         *[a.ctypes.data_as(ctypes.POINTER(ctypes.c_double)) for a in arrs],

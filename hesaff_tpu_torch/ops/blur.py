@@ -52,3 +52,16 @@ def separable_blur(img: torch.Tensor, taps) -> torch.Tensor:
     for i in range(1, k):
         out = out + taps[i] * p[..., i:i + W]
     return out
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Blur (..., H, W) with the OpenCV taps of a known sigma."""
+    return separable_blur(img, gaussian_taps(sigma))
+
+
+def gaussian_blur_traced(img: torch.Tensor, taps) -> torch.Tensor:
+    """Blur (..., H, W) with caller-provided taps (a sequence or a
+    tensor, read on the host)."""
+    if isinstance(taps, torch.Tensor):
+        taps = taps.detach().cpu().numpy()
+    return separable_blur(img, taps)

@@ -33,6 +33,15 @@ def _pick(cond, xs, ys):
     return [torch.where(cond, x, y) for x, y in zip(xs, ys)]
 
 
+def solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve A x = b for stacked systems: A (..., 3, 3), b (..., 3) ->
+    x (..., 3), by solve3x3_parts (singular systems give its NaN / Inf
+    pattern)."""
+    a = [[A[..., i, j] for j in range(3)] for i in range(3)]
+    return torch.stack(solve3x3_parts(a, [b[..., i] for i in range(3)]),
+                       dim=-1)
+
+
 def solve3x3_parts(a, bb):
     """Solve A x = b on unstacked entries.
 

@@ -73,6 +73,14 @@ def bilinear_sample_from(stack: torch.Tensor, idx, wx: torch.Tensor,
     return _bilinear(stack, idx, wx, wy, H, W)
 
 
+def affine_sample(img: torch.Tensor, out_h: int, out_w: int,
+                  ofsx, ofsy, a11, a12, a21, a22):
+    """Warp img (H, W): a centred out_h x out_w affine grid, bilinearly
+    sampled.  Returns (out, touched)."""
+    wx, wy = affine_grid(out_h, out_w, ofsx, ofsy, a11, a12, a21, a22)
+    return bilinear_sample(img, wx, wy)
+
+
 def check_borders(h, w, out_h: int, out_w: int,
                   ofsx, ofsy, a11, a12, a21, a22):
     """Corner-only boundary pre-check; True means "touches boundary".

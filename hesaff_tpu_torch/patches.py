@@ -251,6 +251,16 @@ def extract_bucket_batch(images: torch.Tensor, bucket: int, img_idx,
     return patches, active & ~corner_bad & ~touched
 
 
+def extract_bucket(image: torch.Tensor, bucket: int, x, y, s, a11, a12,
+                   a21, a22, cfg: HesaffConfig):
+    """Patches of one image's keypoints in one bucket: image (H, W), the
+    rest (K,) (single-image form of extract_bucket_batch).  Returns
+    (patches (K, P, P), ok (K,))."""
+    idx = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    return extract_bucket_batch(image[None], bucket, idx, x, y, s, a11, a12,
+                                a21, a22, cfg)
+
+
 def direct_patches(images: torch.Tensor, img_idx, x, y, s, a11, a21, a22,
                    cfg: HesaffConfig, active, valid_hw=None):
     """Direct-warp branch: a P x P warp with A * imageToPatchScale and no

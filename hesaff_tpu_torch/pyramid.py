@@ -114,3 +114,20 @@ def build_octave(first_level: torch.Tensor, pixel_distance: float,
         pixel_distance=pixel_distance,
         next_first=half_image(blurs[..., cfg.num_scales, :, :]),
     )
+
+
+def octave_shapes(height: int, width: int, cfg: HesaffConfig):
+    """Static (H, W, pixel_distance) schedule for an input image size:
+    the octaves the ladder builds, down to min_octave_size."""
+    if cfg.upscale_input:
+        height, width = height * 2, width * 2
+        pd = 0.5
+    else:
+        pd = 1.0
+    out = []
+    while height > cfg.min_octave_size and width > cfg.min_octave_size:
+        out.append((height, width, pd))
+        height //= 2
+        width //= 2
+        pd *= 2.0
+    return out

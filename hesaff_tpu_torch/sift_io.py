@@ -5,13 +5,15 @@ equal to the JAX package's by ``tests/test_torch_config.py`` and
 ``tests/test_torch_io.py``.  Format (the perdoch/hesaff reference's
 export)::
 
-    128
+    D
     m
-    u v a b c d0 .. d127     (m lines)
+    u v a b c d0 .. d(D-1)   (m lines)
 
 where the ellipse a(x-u)^2 + 2b(x-u)(y-v) + c(y-v)^2 = 1 has
 [[a,b],[b,c]] = (A A^T)^(-1) / (mrSize*s)^2, in closed form.
-Descriptor entries are quantized uint8 printed as ints.
+Descriptor entries are quantized uint8 printed as ints.  D is 128 at
+the default 4x4x8 bins; the port writes the true width sb*sb*ob of
+other bin layouts (see write_sift_file).
 
 ``write_sift_file`` takes numpy arrays or tensors on any device: each
 tensor is copied to the host once, and the geometry is widened to
@@ -57,7 +59,13 @@ def _host(a) -> np.ndarray:
 def write_sift_file(path: str, x, y, s, a11, a12, a21, a22, desc,
                     mr_size: float) -> None:
     """Write keypoints in the Oxford format (arrays or tensors of
-    shape (N, ...))."""
+    shape (N, ...)).
+
+    desc is (N, D): the header gives D, the descriptor's true width.
+    Here the port departs from the JAX package, whose writer always
+    writes "128" and reads 128 bytes a row, so a 3x3x8 (72-wide) set
+    round-trips only through the port (read_sift_file reads any D).
+    """
     x, y, s, a11, a12, a21, a22, desc = map(
         _host, (x, y, s, a11, a12, a21, a22, desc))
     e00, e01, e11 = ellipse_abc(
@@ -74,22 +82,26 @@ def write_sift_file(path: str, x, y, s, a11, a12, a21, a22, desc,
 def write_sift(path: str, u, v, e00, e01, e11, desc) -> None:
     """Low-level writer: already-computed ellipse params + uint8 desc.
 
-    Prefers the native C++ writer (hesaff_tpu_torch.native); Python
-    fallback where the native library cannot be built.
+    Prefers the native C++ writer (hesaff_tpu_torch.native), which
+    writes 128-wide rows only; descriptors of any other width, and any
+    width where the native library cannot be built, take the Python
+    writer.
     """
     from hesaff_tpu_torch import native
 
-    if native.write_sift(path, u, v, e00, e01, e11,
-                         np.asarray(desc, np.uint8)):
+    desc = np.asarray(desc, np.uint8)
+    if desc.shape[1] == 128 and native.write_sift(path, u, v, e00, e01,
+                                                  e11, desc):
         return
     write_sift_python(path, u, v, e00, e01, e11, desc)
 
 
 def write_sift_python(path: str, u, v, e00, e01, e11, desc) -> None:
-    """The pure-Python writer (byte-equal to the native one)."""
+    """The pure-Python writer (byte-equal to the native one at width
+    128; the header gives desc's width D)."""
     desc = np.asarray(desc, np.int64)
     n = len(u)
-    lines = [str(128), str(n)]
+    lines = [str(desc.shape[1]), str(n)]
     for i in range(n):
         head = " ".join(
             format_float(float(t)) for t in (u[i], v[i], e00[i], e01[i], e11[i])
@@ -100,7 +112,9 @@ def write_sift_python(path: str, u, v, e00, e01, e11, desc) -> None:
 
 
 def read_sift_file(path: str):
-    """Parse a .hesaff.sift file -> dict of numpy arrays."""
+    """Parse a .hesaff.sift file -> dict of numpy arrays.  The native
+    reader takes width 128 only; other widths are read by the Python
+    reader."""
     from hesaff_tpu_torch import native
 
     out = native.read_sift(path)

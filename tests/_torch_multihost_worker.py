@@ -12,7 +12,8 @@ its results to <workdir>/rank<r>.npz:
   * ring_knn2 of the rank's query and database shards;
   * sharded_query_votes of one query over an index;
   * ba_solve_sharded over the group, and one LM step's all-reduced
-    partials;
+    partials; ba_solve_sharded at 12 iterations in float32 and, on the
+    same problem cast to float64, in float64;
   * host_barrier with every rank present.
 
 Usage: _torch_multihost_worker.py <rank> <nproc> <port> <workdir>
@@ -70,6 +71,15 @@ def main(rank: int, nproc: int, port: int, workdir: str) -> None:
     sol, err = ba.ba_solve_sharded(p, mesh=group, iterations=20)
     out.update(ba_rvec=sol.cam_rvec.numpy(), ba_tvec=sol.cam_tvec.numpy(),
                ba_points=sol.points.numpy(), ba_err=np.float64(err))
+    d = lambda v: v.to(torch.float64)
+    p64 = p._replace(cam_rvec=d(p.cam_rvec), cam_tvec=d(p.cam_tvec),
+                     points=d(p.points), uv=d(p.uv), w=d(p.w))
+    for tag, prob in (("f32", p), ("f64", p64)):
+        sol, err = ba.ba_solve_sharded(prob, mesh=group, iterations=12)
+        out.update({f"{tag}_rvec": sol.cam_rvec.numpy(),
+                    f"{tag}_tvec": sol.cam_tvec.numpy(),
+                    f"{tag}_points": sol.points.numpy(),
+                    f"{tag}_err": np.float64(err)})
     tracks, _ = ba.problem_to_tracks(p, pad_points_multiple=nproc)
     pl = tracks.points.shape[0] // nproc
     mine = slice(rank * pl, (rank + 1) * pl)

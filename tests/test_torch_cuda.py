@@ -1258,3 +1258,107 @@ def test_grouped_on_gpu_matches_cpu_patch_sizes(dev, P):
         j = int(np.argmin(np.hypot(gx - x, gy - y)))
         assert np.hypot(gx[j] - x, gy[j] - y) < 0.01
         assert np.abs(gd[j] - cd[i]).max() <= 2
+
+
+def test_conveniences_on_gpu_match_cpu(dev):
+    """The single-image conveniences on CUDA tensors against their CPU
+    runs: adapt_level / adapt_compacted through K4 (one launch each,
+    the affine budget), extract_bucket through K5 (one launch, equal ok
+    flags, patches at atol 1e-3), and the plain ones (gaussian_blur,
+    gaussian_blur_traced, solve3x3, affine_sample) at rtol / atol 1e-5
+    with equal NaN / Inf patterns."""
+    from hesaff_tpu_torch import affine_shape, patches
+    from hesaff_tpu_torch.ops import blur, cuda_affine, cuda_patches, linalg
+    from hesaff_tpu_torch.ops import warp
+
+    rng = np.random.default_rng(21)
+    H, W, K = 160, 200, 96
+    stack = smooth_stacks(rng, 3, H, W)
+    kp = [rng.uniform(16, W - 16, K), rng.uniform(16, H - 16, K),
+          rng.uniform(1.6, 4.0, K)]
+    kp = [a.astype(np.float32) for a in kp]
+    on = lambda a: torch.as_tensor(a, device=dev)
+    cpu = lambda a: torch.as_tensor(a)
+    before = cuda_affine.LAUNCHES
+    out = affine_shape.adapt_level(on(stack[1]), *map(on, kp), 1.0, CFG)
+    src = np.full(K, 1, np.int32)
+    act = rng.uniform(size=K) > 0.3
+    out_c = affine_shape.adapt_compacted(on(stack), on(src), *map(on, kp),
+                                         1.0, CFG, active=on(act))
+    torch.cuda.synchronize()
+    assert cuda_affine.LAUNCHES == before + 2
+    ref = affine_shape.adapt_level(cpu(stack[1]), *map(cpu, kp), 1.0, CFG)
+    assert_affine_parity(ref, out, np.ones(K, bool), min_matched=8)
+    ref_c = affine_shape.adapt_compacted(cpu(stack), cpu(src), *map(cpu, kp),
+                                         1.0, CFG, active=cpu(act))
+    assert_affine_parity(ref_c, out_c, act, min_matched=4)
+
+    image = smooth_stacks(rng, 240, 320)
+    Kb = 40
+    x = rng.uniform(40, 280, Kb).astype(np.float32)
+    y = rng.uniform(40, 200, Kb).astype(np.float32)
+    s = rng.uniform(4.5, 8.8, Kb).astype(np.float32)
+    a11 = np.exp(rng.normal(0, 0.25, Kb)).astype(np.float32)
+    a21 = rng.normal(0, 0.5, Kb).astype(np.float32)
+    shape = (x, y, s, a11, np.zeros(Kb, np.float32), a21,
+             (1.0 / a11).astype(np.float32))
+    before = cuda_patches.LAUNCHES
+    pk, ok = patches.extract_bucket(on(image), 97, *map(on, shape), CFG)
+    torch.cuda.synchronize()
+    assert cuda_patches.LAUNCHES == before + 1
+    rpk, rok = patches.extract_bucket(cpu(image), 97, *map(cpu, shape), CFG)
+    assert torch.equal(ok.cpu(), rok) and int(rok.sum()) >= 20
+    assert float((pk.cpu()[rok] - rpk[rok]).abs().max()) <= 1e-3
+
+    close = lambda a, b: np.testing.assert_allclose(
+        a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-5)
+    close(blur.gaussian_blur(on(image), 2.3), blur.gaussian_blur(cpu(image),
+                                                                 2.3))
+    taps = blur.gaussian_taps(1.7)
+    close(blur.gaussian_blur_traced(on(image), on(taps)),
+          blur.gaussian_blur_traced(cpu(image), taps))
+    A = rng.normal(size=(64, 3, 3)).astype(np.float32)
+    b = rng.normal(size=(64, 3)).astype(np.float32)
+    A[0] = 0.0
+    A[1, 1] = A[1, 0]
+    g, c = linalg.solve3x3(on(A), on(b)).cpu(), linalg.solve3x3(cpu(A), cpu(b))
+    assert torch.equal(g.isnan(), c.isnan()) and torch.equal(g.isinf(),
+                                                             c.isinf())
+    fin = c.isfinite()
+    close(g[fin], c[fin])
+    params = (31.3, 27.8, 1.2, 0.0, -0.3, 0.83)
+    go, gt = warp.affine_sample(on(image), 21, 25,
+                                *(torch.tensor(v, device=dev) for v in params))
+    co, ct = warp.affine_sample(cpu(image), 21, 25,
+                                *(torch.tensor(v) for v in params))
+    close(go, co)
+    assert gt == ct
+
+
+def test_sift_width_round_trip_from_gpu(dev, tmp_path):
+    """A 3x3x8 extraction on the card: 72-wide descriptors, written from
+    CUDA tensors with "72" in the header and read back equal; an empty
+    batch on the card has the same width."""
+    import dataclasses
+
+    from hesaff_tpu_torch import dist, extract_batch, sift_io
+
+    cfg = dataclasses.replace(CFG, spatial_bins=3)
+    rng = np.random.default_rng(4)
+    images = torch.as_tensor(smooth_stacks(rng, 2, 160, 200) * 3.0,
+                             device=dev)
+    groups = dist.default_group_spec(160, 200, cfg, per_image_cap=512,
+                                     batch=2)
+    out = dist.extraction_step_grouped(images, cfg, groups)
+    v = out.valid
+    assert tuple(out.desc.shape) == (v.numel(), 72) and int(v.sum()) > 0
+    path = str(tmp_path / "w72.sift")
+    sift_io.write_sift_file(path, *(getattr(out, k)[v] for k in (
+        "x", "y", "s", "a11", "a12", "a21", "a22")), out.desc[v],
+        cfg.mr_size)
+    with open(path, "rb") as f:
+        assert f.read().startswith(f"72\n{int(v.sum())}\n".encode())
+    back = sift_io.read_sift_file(path)
+    np.testing.assert_array_equal(back["desc"], out.desc[v].cpu().numpy())
+    empty = extract_batch(torch.zeros((1, 48, 56), device=dev), cfg)
+    assert empty[0].desc.shape == (0, 72)

@@ -48,6 +48,52 @@ def test_port_imports_without_jax():
     assert r.stdout.strip() == "ok"
 
 
+_TOOL_RUNS = {
+    # a tiny run of each tool's path on the CPU (the retrieval tool's
+    # main, its JSON line included), so the modules it imports lazily
+    # are imported too
+    "torch_retrieval_bench": (
+        "import contextlib, io, json\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    tool.main(['--n', '4', '--queries', '1', '--batch', '4',"
+        " '--width', '64', '--height', '52', '--cap', '32',"
+        " '--device', 'cpu'])\n"
+        "rec = json.loads(buf.getvalue().strip().splitlines()[-1])\n"
+        "assert rec['corpus'] == 4 and rec['corpus_s'] > 0\n"),
+    "torch_fleet_bench": (
+        "p = os.path.join(sys.argv[1], 'a.png')\n"
+        "tool.write_png_gray(p, np.full((52, 64), 9, np.uint8))\n"
+        "rec = tool.run([p], os.path.join(sys.argv[1], 'out'), 1, 'cpu')\n"
+        "assert rec['images'] == 1\n"),
+}
+
+
+@pytest.mark.parametrize("tool", sorted(_TOOL_RUNS))
+def test_tools_import_without_jax(tool, tmp_path):
+    """tools/torch_retrieval_bench.py and tools/torch_fleet_bench.py
+    import neither JAX nor the JAX package, through a run of their
+    path."""
+    code = (
+        "import os, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['hesaff_tpu'] = None\n"
+        "import numpy as np\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tools')!r})\n"
+        f"import {tool} as tool\n"
+        + _TOOL_RUNS[tool] +
+        "assert 'jaxlib' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m.startswith('hesaff_tpu.')]\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                       capture_output=True, text=True, env=env, timeout=300,
+                       cwd=ROOT)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "ok"
+
+
 def test_cpu_run_launches_no_kernel(golden_small):
     from hesaff_tpu_torch import extract
     from hesaff_tpu_torch.ops import (cuda_affine, cuda_blur, cuda_detect,
