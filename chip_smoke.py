@@ -619,8 +619,14 @@ def octave_adapt_args(images, cfg) -> list:
 def phase_affine(images, cfg, rec, card: str, label: str = "phase 2",
                  key: str = "affine_adapt") -> None:
     """K4 against its plain version on every octave's real keypoints,
-    one launch an octave as phase A makes them (rec[key])."""
+    one launch an octave as phase A makes them (rec[key]); under the
+    profiler its step counter (k4_steps) against the plain loop's steps,
+    and its outputs bit-equal to a launch without the counter."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     from hesaff_tpu_torch.ops import cuda_affine
+    from hesaff_tpu_torch.utils import profiling
 
     G = cfg.smm_window_size
     e4, ms, call_ms, pms, b4, f4 = 0.0, 0.0, 0.0, 0.0, 0, 0
@@ -646,6 +652,17 @@ def phase_affine(images, cfg, rec, card: str, label: str = "phase 2",
         check(it_flips <= allow,
               f"affine iteration flips {it_flips} > {allow}, octave {oc}")
         n_both += int(both.sum())
+        n_steps = int(steps.sum())
+        with profile(activities=[ProfilerActivity.CPU]):
+            k0 = profiling.counters().get("k4_steps", 0)
+            kc_ = cuda_affine.adapt(*kargs)
+            counted = profiling.counters()["k4_steps"] - k0
+        check(all(torch.equal(getattr(kc_, f), getattr(kr_, f))
+                  for f in kr_._fields),
+              f"affine outputs with the step counter, octave {oc}")
+        check(abs(counted - n_steps) <= 0.02 * n_steps,
+              f"affine k4_steps {counted} against the plain loop's "
+              f"{n_steps}, octave {oc}")
         kms = device_ms(lambda: cuda_affine.adapt(*kargs), K4_KERNELS)
         cms = timed(lambda: cuda_affine.adapt(*kargs))
         kpms = timed(lambda: cuda_affine.adapt_plain(*kargs), 3)
@@ -660,15 +677,16 @@ def phase_affine(images, cfg, rec, card: str, label: str = "phase 2",
         b4 += (min(nbytes(kargs[0]), 4 * int(grid.sum()))
                + nbytes(*kargs[1:7], kr_.ok, kr_.u11, kr_.u12, kr_.u21,
                         kr_.u22, kr_.iters))
-        n_steps = int(steps.sum())
         f4 += n_steps * G * G * 40
         longest = int(steps.max()) if steps.numel() else 0
         rows.append(dict(octave=oc, active=n_act, slots=act.numel(),
-                         steps=n_steps, longest=longest, ms=kms,
+                         steps=n_steps, counted_steps=counted,
+                         longest=longest, ms=kms,
                          call_ms=cms, plain_ms=kpms, flips=flips,
                          iteration_flips=it_flips))
         log(f"{label} affine_adapt octave {oc}: {n_act} active of "
-            f"{act.numel()} slots, {n_steps} steps, longest chain {longest}; "
+            f"{act.numel()} slots, {n_steps} steps ({counted} counted by "
+            f"K4), longest chain {longest}; "
             f"ok flips {flips}, iteration flips {it_flips} (budget {allow}); "
             f"kernel {kms:.4f} device ms ({cms:.4f} ms a call back to back), "
             f"plain {kpms:.3f} ms")

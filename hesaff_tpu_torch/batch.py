@@ -10,7 +10,9 @@ its replicate border or zeros: the documented tolerance of the mode.
 Phase A (device): for every octave, the blur + DoH ladder, the
 detection walk (dense, or sparse for octaves of 2^23 px or more), and
 the affine adaptation of the cross-image flattened
-keypoints; then the rectified frames.  Phase B: the keypoint arrays go
+keypoints; then the rectified frames.  Each octave's three stages run
+in profiler spans "A: ladder", "A: detect" and "A: affine"
+(utils/profiling.span).  Phase B: the keypoint arrays go
 to the host, accepted keypoints of the whole batch are grouped by patch
 workspace bucket, each bucket's patches are extracted on the device
 (through the fused patch kernel on a GPU), and one SIFT pass (the SIFT
@@ -34,6 +36,7 @@ from hesaff_tpu_torch.patches import (BUCKET_SIZES, bucket_for,
 from hesaff_tpu_torch.pipeline import ExtractStats, Features, resolve_device
 from hesaff_tpu_torch.pyramid import (build_octave, level_sigmas,
                                       prepare_first_level)
+from hesaff_tpu_torch.utils.profiling import span
 
 
 def _detect_one_octave(resps, blurs, sig, pd: float, cfg: HesaffConfig,
@@ -79,6 +82,23 @@ def as_valid_hw(valid_hw, device):
                            device=device).reshape(-1, 2).contiguous()
 
 
+def _ladder(images: torch.Tensor, cfg: HesaffConfig):
+    """(octave, pixel distance) of each octave of the ladder down to
+    min_octave_size, each built inside an "A: ladder" span (octave 0's
+    with the initial blur)."""
+    fits = lambda t: min(t.shape[-2:]) > cfg.min_octave_size
+    with span("A: ladder"):
+        cur, pd = prepare_first_level(images, cfg)
+        o = build_octave(cur, pd, cfg) if fits(cur) else None
+    while o is not None:
+        yield o, pd
+        cur, pd = o.next_first, pd * 2.0
+        if not fits(cur):
+            return
+        with span("A: ladder"):
+            o = build_octave(cur, pd, cfg)
+
+
 def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig,
                         valid_hw=None) -> dict:
     """Phase A over an image batch: (B, H, W) -> dict of (B, N_cap).
@@ -95,38 +115,33 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig,
     """
     B = images.shape[0]
     sig = level_sigmas(cfg)
-    cur, pd = prepare_first_level(images, cfg)
     vhw = as_valid_hw(valid_hw, images.device)
     if vhw is not None and cfg.upscale_input:
         vhw = vhw * 2
     fields = defaultdict(list)
     next_firsts = []
-    octave = 0
-    while (cur.shape[-2] > cfg.min_octave_size
-           and cur.shape[-1] > cfg.min_octave_size):
-        o = build_octave(cur, pd, cfg)
-        comp = detect_octave_batch(o.resps, o.blurs, sig, pd, cfg,
-                                   octave=octave, valid_hw=vhw)
+    for octave, (o, pd) in enumerate(_ladder(images, cfg)):
+        with span("A: detect"):
+            comp = detect_octave_batch(o.resps, o.blurs, sig, pd, cfg,
+                                       octave=octave, valid_hw=vhw)
         if vhw is not None:
             # the pyramid floor-halves the true size too
             vhw = vhw // 2
-        ar = adapt_flat(*octave_affine_inputs(comp, o.blurs, pd, cfg))
-        r11, r12, r21, r22 = rectify_up_is_up(ar.u11, ar.u12, ar.u21,
-                                              ar.u22)
-        shp = comp["ok"].shape
-        fields["ok"].append(comp["ok"] & ar.ok.reshape(shp))
-        fields["det_ok"].append(comp["ok"])
-        for k in ("x", "y", "s", "response", "type"):
-            fields[k].append(comp[k])
-        for k, v in (("a11", r11), ("a12", r12), ("a21", r21),
-                     ("a22", r22)):
-            fields[k].append(v.reshape(shp))
-        fields["overflow"].append(comp["overflow"][:, None])
-        fields["n_cand"].append(comp["n_cand"][:, None])
+        with span("A: affine"):
+            ar = adapt_flat(*octave_affine_inputs(comp, o.blurs, pd, cfg))
+            r11, r12, r21, r22 = rectify_up_is_up(ar.u11, ar.u12, ar.u21,
+                                                  ar.u22)
+            shp = comp["ok"].shape
+            fields["ok"].append(comp["ok"] & ar.ok.reshape(shp))
+            fields["det_ok"].append(comp["ok"])
+            for k in ("x", "y", "s", "response", "type"):
+                fields[k].append(comp[k])
+            for k, v in (("a11", r11), ("a12", r12), ("a21", r21),
+                         ("a22", r22)):
+                fields[k].append(v.reshape(shp))
+            fields["overflow"].append(comp["overflow"][:, None])
+            fields["n_cand"].append(comp["n_cand"][:, None])
         next_firsts.append(o.next_first)
-        cur = o.next_first
-        pd *= 2.0
-        octave += 1
     if not fields:
         z = lambda dt: torch.zeros((B, 0), dtype=dt, device=images.device)
         out = {k: z(dt) for k, dt in (

@@ -162,7 +162,7 @@ __global__ void __launch_bounds__(32 * WARPS, 4) affine_kernel(
     const float* __restrict__ mask, int g, int win, int max_iter,
     float conv_thr, float aniso_max, int32_t* __restrict__ ok_out,
     float* __restrict__ u_out, int32_t* __restrict__ iters_out,
-    int* __restrict__ next) {
+    int* __restrict__ next, unsigned long long* __restrict__ steps_total) {
   constexpr int SB = GC ? (GC * GC + 31) / 32 : GENERIC_BATCH;
   const int G = GC ? GC : g;
   const int N = G * G;
@@ -185,6 +185,7 @@ __global__ void __launch_bounds__(32 * WARPS, 4) affine_kernel(
   // the first slot of a warp is its index in the grid; the rest come
   // from the counter, past those
   const int first = gridDim.x * WARPS;
+  int warp_steps = 0;  // Baumberg steps this warp ran, over its slots
   for (int k = blockIdx.x * WARPS + warp; k < K;) {
     if (!active[k]) {
       if (lane == 0) {
@@ -207,6 +208,7 @@ __global__ void __launch_bounds__(32 * WARPS, 4) affine_kernel(
       float ratio_bef = 0.0f;
       bool converged = false, violated = false;
       int conv_iter = 0;
+      int ran = max_iter;  // steps run, as adapt_batch_plain counts them
 
       for (int l = 0; l < max_iter; ++l) {
         const float a11r = u11 * ratio, a12r = u12 * ratio;
@@ -300,8 +302,12 @@ __global__ void __launch_bounds__(32 * WARPS, 4) affine_kernel(
           conv_iter = l;
           converged = true;
         }
-        if (aniso_bad || just_conv) break;
+        if (aniso_bad || just_conv) {
+          ran = l + 1;
+          break;
+        }
       }
+      warp_steps += ran;
       if (lane == 0) {
         ok_out[k] = (converged && !violated) ? 1 : 0;
         u_out[4 * k + 0] = u11;
@@ -315,6 +321,8 @@ __global__ void __launch_bounds__(32 * WARPS, 4) affine_kernel(
     if (lane == 0) t = atomicAdd(next, 1);
     k = first + __shfl_sync(FULL, t, 0);
   }
+  if (steps_total != nullptr && lane == 0 && warp_steps > 0)
+    atomicAdd(steps_total, (unsigned long long)warp_steps);
 }
 
 template <int GC>
@@ -324,7 +332,7 @@ static int launch(const float* stack, long long s_img, long long s_lvl,
                   const uint8_t* active, int K, const float* mask, int G,
                   int win, int max_iter, float conv_thr, float aniso_max,
                   int32_t* ok, float* u, int32_t* iters, int* next,
-                  cudaStream_t stream) {
+                  unsigned long long* steps, cudaStream_t stream) {
   const size_t shmem = sizeof(float) * (size_t)G * G * (1 + WARPS);
   int dev, sms, per_sm;
   cudaError_t err = cudaSuccess;
@@ -345,7 +353,8 @@ static int launch(const float* stack, long long s_img, long long s_lvl,
   const int blocks = (int)(want < fit ? want : fit);
   affine_kernel<GC><<<blocks, 32 * WARPS, shmem, stream>>>(
       stack, s_img, s_lvl, H, W, img_idx, src, lx, ly, ratio, active, K,
-      mask, G, win, max_iter, conv_thr, aniso_max, ok, u, iters, next);
+      mask, G, win, max_iter, conv_thr, aniso_max, ok, u, iters, next,
+      steps);
   return (int)cudaGetLastError();
 }
 
@@ -362,14 +371,16 @@ extern "C" int hesaff_affine_instance(int G, long long* shmem) {
 // stack + img_idx[k] * s_img + src[k] * s_lvl (elements), rows of W
 // contiguous floats.  mask: G*G floats.  Outputs: ok (K) i32, u (K,4)
 // f32, iters (K) i32.  next: one int of device scratch (the slot
-// counter, zeroed here on the stream).  Returns the first CUDA error.
+// counter, zeroed here on the stream).  steps: null, or one int64 on
+// the device to which the Baumberg steps every active keypoint ran are
+// added (one atomic a warp).  Returns the first CUDA error.
 extern "C" int hesaff_affine_adapt(
     const float* stack, long long s_img, long long s_lvl, int H, int W,
     const int32_t* img_idx, const int32_t* src, const float* lx,
     const float* ly, const float* ratio, const uint8_t* active, int K,
     const float* mask, int G, int win, int max_iter, float conv_thr,
     float aniso_max, int32_t* ok, float* u, int32_t* iters, int* next,
-    void* stream) {
+    long long* steps, void* stream) {
   long long shmem = 0;
   const int inst = hesaff_affine_instance(G, &shmem);
   if (inst < 0 || win < 2 || win > H || win > W)
@@ -378,5 +389,5 @@ extern "C" int hesaff_affine_adapt(
   return (inst == 0 ? launch<19> : launch<0>)(
       stack, s_img, s_lvl, H, W, img_idx, src, lx, ly, ratio, active, K,
       mask, G, win, max_iter, conv_thr, aniso_max, ok, u, iters, next,
-      (cudaStream_t)stream);
+      (unsigned long long*)steps, (cudaStream_t)stream);
 }

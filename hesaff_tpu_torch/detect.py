@@ -46,6 +46,7 @@ from hesaff_tpu_torch.config import HesaffConfig
 from hesaff_tpu_torch.ops import cuda_detect
 from hesaff_tpu_torch.ops.batching import compact_rows
 from hesaff_tpu_torch.ops.linalg import fdiv, solve3x3_parts
+from hesaff_tpu_torch.utils.profiling import span
 
 HESSIAN_DARK = 0
 HESSIAN_BRIGHT = 1
@@ -410,7 +411,8 @@ def detect_octave_dense(resps, blurs, sig, pd: float, cfg: HesaffConfig,
     cf = cellk - rf * W
     x = pd * (cf.float() + b0k)
     y = pd * (rf.float() + b1k)
-    sig_v = torch.tensor(sig, dtype=torch.float32, device=resps.device)
+    with span("sync: sigmas"):      # a copy to the card waits for it
+        sig_v = torch.tensor(sig, dtype=torch.float32, device=resps.device)
     sk = pd * (sig_v[level0 + 1] * torch.exp2(fdiv(b2k, cfg.num_scales)))
     ptype = torch.where(
         valk < 0, HESSIAN_SADDLE,

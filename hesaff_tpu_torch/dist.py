@@ -30,10 +30,11 @@ images, the keypoints are gathered to every rank) and
 PipelinedExtractor (phase A on one device, phase B on another, on a
 stream of their own).
 
-Each stage runs inside a torch.profiler span ("phase A", "group N:
-select", "group N: patches", "bucket N", "direct branch", "SIFT"), so a
-profile of one call attributes host time to the stages; without an
-active profiler a span is one host-side call on entry and one on exit.
+Each stage runs inside a torch.profiler span ("input copy", "phase A",
+"group N: select", "group N: patches", "bucket N", "direct branch",
+"assemble", "SIFT"; utils/profiling.span), so a profile of one call
+attributes host time to the stages; without an active profiler a span
+costs one flag read.
 """
 
 from __future__ import annotations
@@ -44,7 +45,6 @@ from typing import NamedTuple, Sequence
 
 import torch
 import torch.distributed as tdist
-from torch.profiler import record_function
 
 from hesaff_tpu_torch import comm
 from hesaff_tpu_torch.batch import as_valid_hw, detect_affine_batch
@@ -57,6 +57,7 @@ from hesaff_tpu_torch.patches import (BUCKET_SIZES, _min_workspace,
                                       direct_patches, extract_bucket_batch)
 from hesaff_tpu_torch.pipeline import resolve_device
 from hesaff_tpu_torch.pyramid import scaled_first_level
+from hesaff_tpu_torch.utils.profiling import span
 
 # Largest group extracted from the full-resolution image; larger groups
 # warp from a downsampled level.  The JAX package chose 384 because its
@@ -195,7 +196,7 @@ def _gather(flat, idx, valid, ncap: int, sort: bool):
 def describe_valid(patches, valid, cfg: HesaffConfig):
     """uint8 descriptors of the valid slots; zero rows elsewhere (one
     masked SIFT launch over every slot on the card)."""
-    with record_function("SIFT"):
+    with span("SIFT"):
         return describe_masked(patches, valid, cfg)
 
 
@@ -205,7 +206,7 @@ def phase_a(images: torch.Tensor, cfg: HesaffConfig, valid_hw=None):
 
     Returns (flat fields (B * N_cap,), next_firsts, candidate overflow,
     slots per image)."""
-    with record_function("phase A"):
+    with span("phase A"):
         out = detect_affine_batch(images, cfg, valid_hw)
     levels_a = out.pop("next_firsts")
     flat = {k: v.reshape(-1) for k, v in out.items()
@@ -231,7 +232,7 @@ def group_selections(flat, cfg: HesaffConfig, groups: Sequence[tuple],
     skip = (its <= cfg.oversample_cutoff) if _mixed(cfg) else None
     prev = 0
     for bsize, bcap in groups:
-        with record_function(f"group {bsize}: select"):
+        with span(f"group {bsize}: select"):
             m = flat["ok"] & (ws > prev) & (ws <= bsize)
             full = bsize <= FULL_RES_GROUP_MAX
             if full and skip is not None:
@@ -251,7 +252,7 @@ def group_patches(images, cfg: HesaffConfig, bsize: int, prev: int, gi, a,
     reference's full-resolution bucket path, slots unsorted).  valid_hw:
     the true sizes of edge-padded images, for the corner check."""
     kp = (gi, *(a[k] for k in ("x", "y", "s", "a11")))
-    with record_function(f"group {bsize}: patches"):
+    with span(f"group {bsize}: patches"):
         if bsize <= FULL_RES_GROUP_MAX:
             return extract_group(images, bsize, *kp, a["a21"], a["a22"],
                                  cfg, valid, valid_hw)
@@ -270,9 +271,14 @@ def group_patches(images, cfg: HesaffConfig, bsize: int, prev: int, gi, a,
 
 def _as_images(images, device) -> torch.Tensor:
     """(B, H, W) float32 contiguous images on the entry point's device
-    (pipeline.resolve_device's rule)."""
-    return torch.as_tensor(images, dtype=torch.float32,
-                           device=resolve_device(images, device)).contiguous()
+    (pipeline.resolve_device's rule).  Moving them between the host and
+    the card waits for the stream: that copy runs in a "sync: input"
+    span."""
+    dev = resolve_device(images, device)
+    there = isinstance(images, torch.Tensor) and images.device.type == dev.type
+    with contextlib.nullcontext() if there else span("sync: input"):
+        return torch.as_tensor(images, dtype=torch.float32,
+                               device=dev).contiguous()
 
 
 def extraction_step_grouped(images, cfg: HesaffConfig,
@@ -288,7 +294,8 @@ def extraction_step_grouped(images, cfg: HesaffConfig,
     device, or the GPU for numpy input; pass "cpu" to run on the CPU).
     Returns DenseFeatures of tensors on the device.
     """
-    images = _as_images(images, device)
+    with span("input copy"):
+        images = _as_images(images, device)
     valid_hw = as_valid_hw(valid_hw, images.device)
     flat, levels_a, overflow, ncap = phase_a(images, cfg, valid_hw)
     levels = {}
@@ -299,10 +306,11 @@ def extraction_step_grouped(images, cfg: HesaffConfig,
                                 levels_a, levels, valid_hw)
         pieces.append((pk, pok, gi, a))
         overflow = overflow + over
-    ws, its = _workspace(flat, cfg)
-    overflow = overflow + (flat["ok"] & (ws > groups[-1][0])).sum()
+    with span("assemble"):
+        ws, its = _workspace(flat, cfg)
+        overflow = overflow + (flat["ok"] & (ws > groups[-1][0])).sum()
     if _mixed(cfg):
-        with record_function("direct branch"):
+        with span("direct branch"):
             dcap = max(64, groups[0][1] // 4)
             idx, valid, over = compact_indices(
                 flat["ok"] & (its <= cfg.oversample_cutoff), dcap)
@@ -319,14 +327,15 @@ def extraction_step_grouped(images, cfg: HesaffConfig,
 def _assemble(pieces, overflow, cfg: HesaffConfig) -> DenseFeatures:
     """DenseFeatures of (patches, ok, img_idx, fields) pieces, slots in
     piece order, described by one masked SIFT pass."""
-    patches = torch.cat([p[0] for p in pieces])
-    pvalid = torch.cat([p[1] for p in pieces])
-    fields = {k: torch.cat([p[3][k] for p in pieces])
-              for k in (*_FIELDS, "type")}
-    return DenseFeatures(
-        valid=pvalid, img_idx=torch.cat([p[2] for p in pieces]),
-        **fields, desc=describe_valid(patches, pvalid, cfg),
-        overflow=overflow)
+    with span("assemble"):
+        patches = torch.cat([p[0] for p in pieces])
+        pvalid = torch.cat([p[1] for p in pieces])
+        fields = {k: torch.cat([p[3][k] for p in pieces])
+                  for k in (*_FIELDS, "type")}
+        img_idx = torch.cat([p[2] for p in pieces])
+    return DenseFeatures(valid=pvalid, img_idx=img_idx, **fields,
+                         desc=describe_valid(patches, pvalid, cfg),
+                         overflow=overflow)
 
 
 def _phase_b_staged(images, flat, ncap: int, overflow,
@@ -346,7 +355,7 @@ def _phase_b_staged(images, flat, ncap: int, overflow,
     pieces = []
     prev = 0
     for bsize, bcap in buckets:
-        with record_function(f"bucket {bsize}"):
+        with span(f"bucket {bsize}"):
             m = flat["ok"] & (ws > prev) & (ws <= bsize)
             idx, valid, over = compact_indices(m, bcap)
             gi, a, valid = _gather(flat, idx, valid, ncap, sort=False)

@@ -29,6 +29,7 @@ import torch
 
 from hesaff_tpu_torch import comm
 from hesaff_tpu_torch.pipeline import resolve_device
+from hesaff_tpu_torch.utils.profiling import span
 
 
 class Matches(NamedTuple):
@@ -66,17 +67,19 @@ def knn2(query, db, block: int = 4096, device=None) -> Matches:
 
     query: (N, D); db: (M, D), numpy or tensors, computed in float32 on
     `device` (default: the query tensor's device, or the GPU).  Returns
-    Matches of tensors on that device.
+    Matches of tensors on that device.  The float32 copies run in a
+    "knn2: widen" span, the whole block loop in one "knn2: blocks" span.
     """
     dev = resolve_device(query, device)
-    q = torch.as_tensor(query, device=dev).to(torch.float32)
-    d = torch.as_tensor(db, device=dev).to(torch.float32)
+    with span("knn2: widen"):
+        q = torch.as_tensor(query, device=dev).to(torch.float32)
+        d = torch.as_tensor(db, device=dev).to(torch.float32)
     N, M = q.shape[0], d.shape[0]
     nblk = max(1, -(-M // block))
     bi = torch.zeros(N, dtype=torch.int32, device=dev)
     bd1 = torch.full((N,), float("inf"), device=dev)
     bd2 = torch.full((N,), float("inf"), device=dev)
-    with full_f32():
+    with full_f32(), span("knn2: blocks"):
         for b in range(nblk):
             dbs = d[b * block:(b + 1) * block]
             if dbs.shape[0] < block:

@@ -2,12 +2,16 @@
 
 The JAX package compacts with cumsum compare-counts because a sort is
 slow on the TPU.  Here ``torch.nonzero`` gives the same row-major
-order.  The capacity stays, and what does not fit is counted.
+order.  The capacity stays, and what does not fit is counted.  The
+``nonzero`` and each boolean-mask index wait for the device to learn
+their sizes: each runs in a "sync: compact" span of its own.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hesaff_tpu_torch.utils.profiling import span
 
 
 def compact_rows(mask: torch.Tensor, capacity: int):
@@ -19,12 +23,17 @@ def compact_rows(mask: torch.Tensor, capacity: int):
     """
     B, _ = mask.shape
     counts = mask.sum(dim=1)
-    rows, cols = mask.nonzero(as_tuple=True)
+    with span("sync: compact"):
+        rows, cols = mask.nonzero(as_tuple=True)
     start = torch.cumsum(counts, 0) - counts
     rank = torch.arange(rows.numel(), device=mask.device) - start[rows]
     fit = rank < capacity
+    kept = []
+    for t in (rows, rank, cols):
+        with span("sync: compact"):
+            kept.append(t[fit])
     idx = torch.zeros((B, capacity), dtype=torch.int64, device=mask.device)
-    idx[rows[fit], rank[fit]] = cols[fit]
+    idx[kept[0], kept[1]] = kept[2]
     slots = torch.arange(capacity, device=mask.device)
     valid = slots[None, :] < counts[:, None]
     overflow = torch.clamp_min(counts - capacity, 0)

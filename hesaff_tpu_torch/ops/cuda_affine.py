@@ -22,6 +22,7 @@ import functools
 import torch
 
 from hesaff_tpu_torch.ops import cuda_build
+from hesaff_tpu_torch.utils import profiling
 
 # launches of the CUDA kernel in this process, and of its generic
 # instance alone
@@ -30,7 +31,7 @@ GENERIC_LAUNCHES = 0
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = ([_vp, ctypes.c_longlong, ctypes.c_longlong, _i, _i] + [_vp] * 6
-             + [_i, _vp] + [_i] * 3 + [_f, _f] + [_vp] * 5)
+             + [_i, _vp] + [_i] * 3 + [_f, _f] + [_vp] * 6)
 
 
 @functools.lru_cache(maxsize=16)
@@ -66,11 +67,18 @@ def adapt(stack, img_idx, src, lx, ly, ratio, active, win: int, cfg):
     img_idx, src: (K,) int; lx, ly, ratio: (K,) float32 octave
     coordinates and s / (initial_sigma * pd); active: (K,) bool.
 
-    Returns an affine_shape.AffineResult of (K,) tensors.
+    Returns an affine_shape.AffineResult of (K,) tensors.  While
+    torch.profiler records, the Baumberg steps run are added to the
+    counter ``k4_steps`` (utils/profiling), on either path.
     """
     if lx.device.type == "cpu":
-        return adapt_plain(stack, img_idx, src, lx, ly, ratio, active,
-                           win, cfg)
+        if not profiling.tracing():
+            return adapt_plain(stack, img_idx, src, lx, ly, ratio, active,
+                               win, cfg)
+        res, steps = adapt_plain(stack, img_idx, src, lx, ly, ratio, active,
+                                 win, cfg, return_steps=True)
+        profiling.counter("k4_steps", lx.device).add_(steps.sum())
+        return res
     if lx.device.type != "cuda":
         raise ValueError(f"adapt: unsupported device {lx.device}")
     return _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg)
@@ -101,6 +109,8 @@ def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
     iters = torch.empty(K, dtype=torch.int32, device=dev)
     # the kernel's slot counter, zeroed by the entry point on the stream
     counter = torch.empty(1, dtype=torch.int32, device=dev)
+    steps = (cuda_build.ptr(profiling.counter("k4_steps", dev))
+             if profiling.tracing() else None)
     fn = cuda_build.entry("affine_adapt", "hesaff_affine_adapt", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(cuda_build.ptr(stack), stack.stride(0), stack.stride(1),
@@ -109,7 +119,7 @@ def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
                  K, cuda_build.ptr(mask), G, win, cfg.max_iterations,
                  cfg.convergence_threshold, cfg.anisotropy_max,
                  *(cuda_build.ptr(t) for t in (ok, u, iters, counter)),
-                 cuda_build.stream(dev))
+                 steps, cuda_build.stream(dev))
     cuda_build.check(err, "affine_adapt")
     LAUNCHES += 1
     GENERIC_LAUNCHES += generic

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from hesaff_tpu_torch.utils.profiling import span
+
 
 def affine_grid(out_h: int, out_w: int, ofsx, ofsy, a11, a12, a21, a22):
     """Coordinates of a centred out_h x out_w affine grid.
@@ -95,10 +97,13 @@ def check_borders(h, w, out_h: int, out_w: int,
     height = h - 2
     half_w = out_w >> 1
     half_h = out_h >> 1
-    xs = torch.tensor([-half_w, -half_w, half_w, half_w],
-                      dtype=torch.float32, device=ref.device)
-    ys = torch.tensor([-half_h, half_h, -half_h, half_h],
-                      dtype=torch.float32, device=ref.device)
+    # each copy to the card waits for it
+    with span("sync: corners"):
+        xs = torch.tensor([-half_w, -half_w, half_w, half_w],
+                          dtype=torch.float32, device=ref.device)
+    with span("sync: corners"):
+        ys = torch.tensor([-half_h, half_h, -half_h, half_h],
+                          dtype=torch.float32, device=ref.device)
     ex = lambda v: v[..., None] if isinstance(v, torch.Tensor) else v
     imx = ex(ofsx) + xs * ex(a11) + ys * ex(a12)
     imy = ex(ofsy) + xs * ex(a21) + ys * ex(a22)

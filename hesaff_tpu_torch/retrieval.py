@@ -20,6 +20,7 @@ import torch
 from hesaff_tpu_torch import comm
 from hesaff_tpu_torch.match import knn2, ring_knn2
 from hesaff_tpu_torch.pipeline import resolve_device
+from hesaff_tpu_torch.utils.profiling import span
 
 
 class DescriptorIndex(NamedTuple):
@@ -60,12 +61,20 @@ def query_votes(index: DescriptorIndex, query_desc, ratio: float = 0.9,
     if not isinstance(query_desc, torch.Tensor):
         query_desc = np.asarray(query_desc, np.float32)
     m = knn2(query_desc, index.desc, device=dev)
-    idx = m.idx.cpu().numpy()
-    keep = m.dist.cpu().numpy() < (ratio * ratio) * m.dist2.cpu().numpy()
-    votes = np.zeros(index.n_images, np.int64)
-    np.add.at(votes, index.image_id[idx[keep]], 1)
-    matches = np.where(keep, idx, -1).astype(np.int32)
+    with span("votes"):
+        idx, dist, dist2 = (_to_host(t) for t in m)
+        keep = dist < (ratio * ratio) * dist2
+        votes = np.zeros(index.n_images, np.int64)
+        np.add.at(votes, index.image_id[idx[keep]], 1)
+        matches = np.where(keep, idx, -1).astype(np.int32)
     return votes.astype(np.int32), matches
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """t on the host, in a "sync: votes" span (the copy waits for the
+    2-NN's blocks)."""
+    with span("sync: votes"):
+        return t.cpu().numpy()
 
 
 def rank_images(index: DescriptorIndex, query_desc, ratio: float = 0.9,

@@ -1,13 +1,16 @@
-"""Stage timing and traces.
+"""Spans, counters and traces on torch.profiler's clock.
 
-Port of ``hesaff_tpu/utils/profiling.py`` on torch.profiler:
-
-  * `StageTimes.stage(name)` times a pipeline stage on the host clock and
-    opens a ``record_function`` span of that name, the kind of span
-    dist.py opens around its stages, so a trace shows it.  The stage's
-    device work may still run after it returns: synchronising before the
-    stage ends is the caller's job.
-  * `StageTimes.report()` lists wall ms per stage with derived rates.
+  * `tracing()`: whether torch.profiler is recording.
+  * `span(name)`: a ``record_function`` span of that name while tracing,
+    a shared null context otherwise (a fraction of a microsecond, where
+    a ``record_function`` costs ~10 us even with no profiler running).
+    The program's spans are all opened through it, so kineto stamps
+    them on the clock of the device events of the same trace.  Names
+    starting with ``sync: `` hold one blocking device-to-host point
+    each: their count is the number of host syncs.
+  * `counter(name, device)`: a (1,) int64 tensor on the device that
+    the program adds into while tracing (``k4_steps``: the Baumberg steps
+    K4 ran); `counters()` reads every total (that read synchronises).
   * `trace_to(logdir)` records a torch.profiler trace (CPU, and CUDA
     where a GPU is present) and writes it as a Chrome trace JSON file
     into logdir when the block ends, also when it raises.
@@ -18,38 +21,41 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
+_OFF = contextlib.nullcontext()
 
-class StageTimes:
-    """Accumulates per-stage wall times across calls."""
+# name -> device -> (1,) int64 tensor
+_COUNTERS: dict[str, dict[torch.device, torch.Tensor]] = {}
 
-    def __init__(self):
-        self.times = defaultdict(float)
-        self.counts = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        with record_function(name):
-            t0 = time.perf_counter()
-            yield
-            dt = time.perf_counter() - t0
-        self.times[name] += dt
-        self.counts[name] += 1
+def tracing() -> bool:
+    """Whether torch.profiler is recording in this process."""
+    return _autograd_profiler._is_profiler_enabled
 
-    def report(self, items_per_stage: dict | None = None) -> str:
-        lines = []
-        for name in sorted(self.times, key=self.times.get, reverse=True):
-            line = (f"{name:24s} {self.times[name]*1e3:9.1f} ms "
-                    f"({self.counts[name]}x)")
-            if items_per_stage and name in items_per_stage:
-                rate = items_per_stage[name] / max(self.times[name], 1e-9)
-                line += f"  {rate:,.0f}/s"
-            lines.append(line)
-        return "\n".join(lines)
+
+def span(name: str):
+    """A profiler span called `name` while tracing, else a no-op."""
+    return record_function(name) if tracing() else _OFF
+
+
+def counter(name: str, device) -> torch.Tensor:
+    """The (1,) int64 tensor on `device` that counter `name` adds into,
+    zero when first asked for."""
+    dev = torch.device(device)
+    per = _COUNTERS.setdefault(name, {})
+    if dev not in per:
+        per[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return per[dev]
+
+
+def counters() -> dict[str, int]:
+    """Each counter's total over its devices (synchronises)."""
+    return {name: sum(int(t.item()) for t in per.values())
+            for name, per in _COUNTERS.items()}
 
 
 @contextlib.contextmanager

@@ -15,7 +15,8 @@ the maps at rtol 1e-6 / atol 1e-5 where the mask is set (bit-equal
 everywhere on odd shapes, strided views and planes with NaN and inf); the sparse
 octave path equal to its CPU run in every field but s (rtol 1e-6, the
 exp2 wobble); the affine loop under the 2% ok/iteration flip budget
-with U rtol 1e-4 / atol 5e-5; the patch kernel with equal bad flags
+with U rtol 1e-4 / atol 5e-5 (its step counter within 2% of the plain
+loop's steps, outputs bit-equal with and without it); the patch kernel with equal bad flags
 and patches at atol 1e-3; SIFT within one step and >= 99% exact (its masked uint8 entry equal to
 its float entry, zero rows where not valid).  After the descriptors
 (no kernel of the port's own): knn2 on the card bit-equal to its CPU
@@ -357,6 +358,31 @@ def test_affine_kernel_paths(dev, G):
     eye = torch.tensor([1.0, 0.0, 0.0, 1.0], device=dev)
     u = torch.stack([out.u11, out.u12, out.u21, out.u22], dim=1)
     assert bool((u[~act] == eye).all())
+
+
+@pytest.mark.parametrize("G", [19, 15])
+def test_affine_kernel_step_counter(dev, G):
+    """K4's step counter (utils/profiling k4_steps): no counter off the
+    profiler; under it the Baumberg steps of the plain loop (within the
+    2% iteration-flip allowance); outputs bit-equal either way."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hesaff_tpu_torch.ops import cuda_affine
+    from hesaff_tpu_torch.utils import profiling
+
+    args = _affine_case(np.random.default_rng(7), dev, G, 301)
+    steps_now = lambda: profiling.counters().get("k4_steps", 0)
+    before = steps_now()
+    off = cuda_affine.adapt(*args)
+    assert steps_now() == before
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = cuda_affine.adapt(*args)
+    counted = steps_now() - before
+    _, steps = cuda_affine.adapt_plain(*args, return_steps=True)
+    for f in AFFINE_FIELDS:
+        assert torch.equal(getattr(off, f), getattr(on, f)), f
+    want = int(steps.sum())
+    assert want > 0 and abs(counted - want) <= 0.02 * want
 
 
 @pytest.mark.parametrize("K,act_share", [(0, 1.0), (64, 0.0), (1, 1.0),
