@@ -82,7 +82,11 @@ bench.py's gate); K1, K2 and K6 launched once a level, octave and call;
 one query's knn2 timed against its bound; then the fleet tool over the
 16 bench images written as PNG and their 640x512 crops (no failure,
 each file within phase 8's padded-mode tolerance of extract_batch on
-the card).  Exits non-zero on any failed phase; on
+the card).  Phase 13 runs K7 (ops/cuda_knn2, the exact 2-NN of uint8
+rows) at the benchmark query's shape, 2,750 rows against a 16.33 M-row
+uint8 index (2.1 GB): three launches a call, bit-equal to the float32
+blocked path, timed against that path and against the int8 tensor
+cores' bound.  Exits non-zero on any failed phase; on
 success the last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -99,11 +103,13 @@ K4 call on a small octave is shorter than its host's enqueue), and the
 bound: the larger of the bytes it must move over 3.35 TB/s and the
 float32 operations its function needs over 67 TFLOP/s (H100 SXM data
 sheet), both counted from this run's inputs (K4's operations from the
-steps each keypoint ran in the plain loop).  No single PyTorch call
-computes any of the six functions, so library_ms is null.  The record
+steps each keypoint ran in the plain loop; K7's uint8 products over the
+int8 tensor cores' 1,979 TOP/s).  No single PyTorch call computes any
+of the six functions (nor K7's), so library_ms is null.  The record
 also holds the four generic instances of phase 11 (K6 and K5 past 64
 px, K1 past 31 taps, K4 past a 31-sample grid) with their launches on
-phase 11's path and their numbers at its shapes (by_shape).  There is
+phase 11's path and their numbers at its shapes (by_shape), and K7
+(knn2_u8, replacing no TPU kernel) with phase 13's numbers.  There is
 no CPU mode: without a CUDA device the script exits with an error.
 """
 
@@ -173,6 +179,12 @@ RET_H, RET_W, RET_CAP = 208, 256, 256
 CROP_H, CROP_W = 512, 640
 FLEET_BATCH = 8
 
+# phase 13 (K7): one Oxford5k-size query's exact 2-NN, K7_QUERY uint8
+# rows against a K7_ROWS-row uint8 index (2.1 GB) made on the card from
+# K7_SEED
+K7_QUERY, K7_ROWS, K7_SEED = 2750, 16_334_970, 7
+K7_SOURCE = "hesaff_tpu_torch/csrc/knn2_u8.cu"
+
 KERNELS = (
     # name, source, TPU kernel it replaces
     ("blur_doh", "hesaff_tpu_torch/csrc/blur_doh.cu",
@@ -201,8 +213,8 @@ GENERIC = (
 # the device kernel of K4's wrapper (torch.profiler's name)
 K4_KERNELS = ("affine_kernel",)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 flop/s
-# outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# outside the tensor cores, int8 tensor-core operations/s
+PEAK_BYTES, PEAK_F32, PEAK_INT8 = 3.35e12, 67e12, 1979e12
 
 failures: list[str] = []
 # times that a later phase prints beside its own (knn2_ms of phase 7,
@@ -260,10 +272,10 @@ def device_ms(fn, names, reps: int = 20) -> float:
     return us / 1e3 / reps
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32) -> dict:
     """Least time for the work: the larger of bytes and operations
-    over the card's peaks."""
-    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    over the card's peaks (float32 operations unless `peak` says)."""
+    tb, tf = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return dict(bound_ms=max(tb, tf),
                 bound_by="bytes" if tb >= tf else "operations",
                 library_ms=None)
@@ -2640,6 +2652,59 @@ def phase_collection(corpus_np, images_np, dev, card: str) -> dict:
     return {k: ret_launches[k] + fleet_launches[k] for k in ret_launches}
 
 
+def phase_knn2(dev, card: str) -> dict:
+    """Phase 13, K7 (ops/cuda_knn2) at the benchmark query's shape: an
+    Oxford5k query's K7_QUERY uint8 rows against a K7_ROWS-row uint8
+    index on the card (uniform rows from K7_SEED; a third of the queries
+    copies of index rows, the first of them of a row held twice).
+    Checks: match.knn2 launches K7 three times a call, and its idx /
+    dist / dist2 equal the float32 blocked path's (the plain version,
+    bit-equal to the CPU run in the cuda tests) on the same rows.  Times
+    K7 (CUDA events around 10 calls) and the plain version (one call:
+    the index widened to float32, ~4,000 blocks) against the bound: the
+    int8 tensor cores' 2 x Nq x M x 128 operations, or the index read
+    once.  Returns K7's record."""
+    import torch
+
+    from hesaff_tpu_torch.match import knn2
+    from hesaff_tpu_torch.ops import cuda_knn2
+
+    g = torch.Generator(device=dev).manual_seed(K7_SEED)
+    db = torch.randint(0, 256, (K7_ROWS, 128), dtype=torch.uint8,
+                       device=dev, generator=g)
+    q = torch.randint(0, 256, (K7_QUERY, 128), dtype=torch.uint8,
+                      device=dev, generator=g)
+    pick = torch.randint(0, K7_ROWS, (K7_QUERY // 3,), device=dev,
+                         generator=g)
+    db[-1] = db[pick[0]]
+    q[:K7_QUERY // 3] = db[pick]
+    torch.cuda.synchronize()
+    before = cuda_knn2.LAUNCHES
+    out = knn2(q, db)
+    torch.cuda.synchronize()
+    launches = cuda_knn2.LAUNCHES - before
+    check(launches == 3, f"K7: {launches} launches a call, not 3")
+    plain = knn2(q.float(), db.float())
+    same = all(bool(torch.equal(a, b)) for a, b in zip(out, plain))
+    check(same, "K7: idx / dist / dist2 differ from the float32 path")
+    check(bool((plain.dist2[0] == plain.dist[0]) & (plain.dist[0] == 0)),
+          "K7: the planted duplicate minimum is missing")
+    del plain
+    ms = timed(lambda: knn2(q, db), 10)
+    plain_ms = timed(lambda: knn2(q.float(), db.float()), 1)
+    torch.cuda.empty_cache()
+    rec = dict(bound(nbytes(q, db) + K7_QUERY * 12,
+                     2.0 * K7_QUERY * K7_ROWS * 128, PEAK_INT8),
+               max_abs_err=0.0 if same else None, ms=ms, plain_ms=plain_ms)
+    log(f"phase 13 K7 knn2 {K7_QUERY} x {K7_ROWS} uint8 rows on {card}: "
+        f"{ms:.3f} ms a call (CUDA events, 10 calls), plain float32 path "
+        f"{plain_ms:.1f} ms; bound {rec['bound_ms']:.3f} ms "
+        f"({rec['bound_by']}: int8 tensor cores), "
+        f"{100 * rec['bound_ms'] / ms:.1f}% of it; {launches} launches a "
+        f"call; bit-equal to the float32 path: {same}")
+    return dict(rec, launches=launches)
+
+
 _SPANS = ("phase A", "group ", "direct branch", "SIFT")
 
 
@@ -2778,6 +2843,7 @@ def main() -> int:
                                            cfg, dev, card)
     launches["12"] = run("12", phase_collection, corpus_np, images_np, dev,
                          card)
+    rec13 = run("13", phase_knn2, dev, card)
     log("  phase walls (s): "
         + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     if failures:
@@ -2795,6 +2861,9 @@ def main() -> int:
                      replaces=parent[of][1], launches=generic11[name],
                      launches_phase11=generic11[name], **rec11[name])
                 for name, of, _, _ in GENERIC]
+    kernels.append(dict(name="knn2_u8", route="cuda", source=K7_SOURCE,
+                        replaces=None, launches_phase13=rec13["launches"],
+                        **rec13))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,15 @@
-"""Descriptor matching: exact blocked 2-NN, Lowe-ratio matching and the
-ring 2-NN over a process group.
+"""Descriptor matching: exact 2-NN, Lowe-ratio matching and the ring
+2-NN over a process group.
 
-Port of ``hesaff_tpu/match.py``.  Distances use the factorized form
+Port of ``hesaff_tpu/match.py``.  uint8 rows of 128 on the card, against
+a database of at least 2 rows, take the K7 kernel
+(``ops/cuda_knn2``: int8 tensor-core products, the running best and
+second kept on chip, three launches and no host sync); every other input
+(CPU tensors, float32 rows, other widths, a one-row database) takes the
+blocked float32 path below, the kernel's plain version.  The choice
+rests on the inputs' dtype, device, width and row count alone.
+
+The float32 path: distances use the factorized form
 ||a-b||^2 = |a|^2 + |b|^2 - 2 a.b, so the O(N*M*128) term is one
 float32 matrix product per column block (``torch.addmm_``, TF32 off for
 the call); the running (best, second-best) merge over blocks never
@@ -9,14 +17,14 @@ materialises the N x M matrix.  One block is N x 4096 float32 and is
 the only large buffer: the product is added into it in place and the
 best column masked in place (``scatter_``).
 
-For uint8 descriptors held as float32 every term is an integer below
-2^24 (128 * 255^2 = 8,323,200; |q|^2 + |d|^2 <= 16,646,400), so the
+For uint8 descriptors every term is an integer below 2^24
+(128 * 255^2 = 8,323,200; |q|^2 + |d|^2 <= 16,646,400), so the
 distances are exact in any summation order and ``idx`` / ``dist`` /
 ``dist2`` equal the JAX package's bit for bit, on the CPU and on the
-card.  Ties keep the first index: ``argmin`` within a block and a
-strict ``<`` across blocks.  The last block is padded with rows of 1e6
-as JAX pads it; only with a single database row does a padded row's
-distance (not an integer, so not exact) reach ``dist2``.
+card, on either path.  Ties keep the first index: ``argmin`` within a
+block and a strict ``<`` across blocks.  The last block is padded with
+rows of 1e6 as JAX pads it; only with a single database row does a
+padded row's distance (not an integer, so not exact) reach ``dist2``.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import numpy as np
 import torch
 
 from hesaff_tpu_torch import comm
+from hesaff_tpu_torch.ops import cuda_knn2
 from hesaff_tpu_torch.pipeline import resolve_device
 from hesaff_tpu_torch.utils.profiling import span
 
@@ -62,15 +71,27 @@ def _topk2_block(q, db, base: int):
     return i1.to(torch.int32) + base, d1, d2
 
 
+def _uint8(x) -> bool:
+    return (x.dtype == torch.uint8 if isinstance(x, torch.Tensor)
+            else np.asarray(x).dtype == np.uint8)
+
+
 def knn2(query, db, block: int = 4096, device=None) -> Matches:
     """Exact 2-NN of each query descriptor in db (squared L2).
 
-    query: (N, D); db: (M, D), numpy or tensors, computed in float32 on
-    `device` (default: the query tensor's device, or the GPU).  Returns
-    Matches of tensors on that device.  The float32 copies run in a
-    "knn2: widen" span, the whole block loop in one "knn2: blocks" span.
+    query: (N, D); db: (M, D), numpy or tensors, on `device` (default:
+    the query tensor's device, or the GPU).  Returns Matches of tensors
+    on that device.  uint8 rows of 128 on the card with M >= 2 go to the
+    K7 kernel; anything else is computed in float32 in blocks of `block`
+    database rows, the float32 copies in a "knn2: widen" span and the
+    whole block loop in one "knn2: blocks" span.
     """
     dev = resolve_device(query, device)
+    if (dev.type == "cuda" and _uint8(query) and _uint8(db)
+            and len(db) >= 2 and np.shape(query)[1:] == (cuda_knn2.DIM,)
+            and np.shape(db)[1:] == (cuda_knn2.DIM,)):
+        return Matches(*cuda_knn2.knn2(_kernel_rows(query, dev),
+                                       _kernel_rows(db, dev)))
     with span("knn2: widen"):
         q = torch.as_tensor(query, device=dev).to(torch.float32)
         d = torch.as_tensor(db, device=dev).to(torch.float32)
@@ -88,6 +109,12 @@ def knn2(query, db, block: int = 4096, device=None) -> Matches:
             bi, bd1, bd2 = _merge(bi, bd1, bd2,
                                   *_topk2_block(q, dbs, b * block))
     return Matches(idx=bi, dist=bd1, dist2=bd2)
+
+
+def _kernel_rows(x, dev) -> torch.Tensor:
+    """x on `dev` as the kernel takes it: contiguous, 16-byte aligned."""
+    t = torch.as_tensor(x, device=dev).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _merge(bi, bd1, bd2, i1, d1, d2):
@@ -142,13 +169,14 @@ def match_descriptors(desc1, desc2, ratio: float = 0.8,
     """Lowe-ratio (+ optional mutual) matching of uint8 SIFT descriptors.
 
     Runs the 2-NN on `device` (default: desc1's device if a tensor,
-    else the GPU).  Returns (idx1, idx2) numpy int32 arrays of matched
-    pairs.  The ratio test, dist < (ratio*ratio) * dist2, is taken in
-    float32 on the host as the JAX package takes it.
+    else the GPU), in the descriptors' own dtype: uint8 rows on the card
+    take the K7 kernel.  Returns (idx1, idx2) numpy int32 arrays of
+    matched pairs.  The ratio test, dist < (ratio*ratio) * dist2, is
+    taken in float32 on the host as the JAX package takes it.
     """
     dev = resolve_device(desc1, device)
     d1, d2 = (torch.as_tensor(d if isinstance(d, torch.Tensor)
-                              else np.asarray(d), device=dev).to(torch.float32)
+                              else np.asarray(d), device=dev)
               for d in (desc1, desc2))
     if d1.shape[0] == 0 or d2.shape[0] == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.int32)

@@ -19,7 +19,7 @@ with U rtol 1e-4 / atol 5e-5 (its step counter within 2% of the plain
 loop's steps, outputs bit-equal with and without it); the patch kernel with equal bad flags
 and patches at atol 1e-3; SIFT within one step and >= 99% exact (its masked uint8 entry equal to
 its float entry, zero rows where not valid).  After the descriptors
-(no kernel of the port's own): knn2 on the card bit-equal to its CPU
+knn2 on the card (the K7 kernel on uint8 rows) bit-equal to its CPU
 run on uint8 descriptors (a single database row's padded dist2 at rtol
 1e-6), match pairs equal; RANSAC and the pose to tests/test_ransac.py's
 thresholds; the Oxford file from CUDA tensors byte-equal to the one
@@ -683,7 +683,8 @@ def two_view_scene(n=300, outlier_frac=0.2, seed=1):
 def test_knn2_on_gpu_equals_cpu(dev, nq, m, block):
     """uint8-valued descriptors with duplicate rows: idx, dist and dist2
     bit-equal to the CPU run (every term an integer below 2^24; with
-    M == 1 dist2 is a padding row's distance, not exact: rtol 1e-6)."""
+    M == 1 dist2 is a padding row's distance, not exact: rtol 1e-6).
+    uint8 input on the card takes the K7 kernel where M >= 2."""
     from hesaff_tpu_torch import match
 
     rng = np.random.default_rng(m)
@@ -704,6 +705,126 @@ def test_knn2_on_gpu_equals_cpu(dev, nq, m, block):
     pairs = match.match_descriptors(q, db, device=dev)
     for a, b in zip(pairs, match.match_descriptors(q, db, device="cpu")):
         np.testing.assert_array_equal(a, b)
+
+
+def planted_u8(nq, m, seed):
+    """tests/test_torch_match.planted's sets (copied: that module imports
+    JAX) for the K7 kernel: duplicate rows, some 256 apart, queries equal
+    to rows and noisy copies, query 0 a copy of a row held twice; and
+    identical rows on both sides of every tile boundary (256 rows, so
+    every strip boundary of the kernel's plan on this card too), each
+    asked for by a query, and all-zero (twice) and all-255 rows and
+    queries."""
+    from hesaff_tpu_torch.ops import cuda_knn2
+
+    rng = np.random.default_rng(seed)
+    db = rng.integers(0, 256, (m, 128)).astype(np.uint8)
+    db[rng.integers(0, m, m // 10)] = db[rng.integers(0, m, m // 10)]
+    for i in range(0, m - 256, 97):
+        db[i + 256] = db[i]
+    cuts = list(range(cuda_knn2.DROWS, m, cuda_knn2.DROWS))
+    for c in cuts:
+        db[c] = db[c - 1]
+    db[m - 1] = db[0]
+    if m >= 8:
+        db[1], db[2], db[3] = 0, 255, 0
+    q = rng.integers(0, 256, (nq, 128)).astype(np.uint8)
+    third = nq // 3
+    q[:third] = db[rng.integers(0, m, third)]
+    q[third:2 * third] = np.clip(
+        db[rng.integers(0, m, third)].astype(np.int32)
+        + rng.integers(-3, 4, (third, 128)), 0, 255)
+    k = min(len(cuts), nq - 2 * third - 2)
+    if k > 0:
+        q[2 * third:2 * third + k] = db[np.array(cuts[:k]) - 1]
+    q[0] = db[0]
+    if nq >= 3 and m >= 8:
+        q[-1], q[-2] = 0, 255
+    return q, db
+
+
+@pytest.mark.parametrize("m", [2, 63, 4097, 300_000])
+@pytest.mark.parametrize("nq", [1, 37, 2750])
+def test_knn2_u8_kernel_equals_cpu(dev, nq, m):
+    """K7 through match.knn2 on uint8 CUDA tensors: three launches, and
+    idx, dist and dist2 bit-equal to the CPU path, with ties planted
+    across tile and strip boundaries and duplicate minima (dist2 ==
+    dist)."""
+    from hesaff_tpu_torch import match
+    from hesaff_tpu_torch.ops import cuda_knn2
+
+    q, db = planted_u8(nq, m, seed=nq * 7 + m)
+    before = cuda_knn2.LAUNCHES
+    g = match.knn2(torch.as_tensor(q, device=dev),
+                   torch.as_tensor(db, device=dev))
+    torch.cuda.synchronize()
+    assert cuda_knn2.LAUNCHES == before + 3
+    assert g.idx.dtype == torch.int32 and g.dist.dtype == torch.float32
+    c = match.knn2(q, db, device="cpu")
+    for a, b in zip(g, c):
+        assert torch.equal(a.cpu(), b)
+    assert c.dist[0] == 0 and c.dist2[0] == 0
+    if m >= 8 and nq >= 3:
+        assert int(c.idx[-1]) == 1 and float(c.dist2[-1]) == 0
+    if m > 256 and nq >= 37:
+        assert bool((c.dist2 == c.dist).sum() > 2)
+
+
+@pytest.mark.parametrize("case", ["uint8", "float32", "cpu", "one_row",
+                                  "width_72"])
+def test_knn2_u8_kernel_dispatch(dev, case):
+    """K7 launches on uint8 rows of 128 on the card with M >= 2, and for
+    nothing else; each case equals the CPU path."""
+    from hesaff_tpu_torch import match
+    from hesaff_tpu_torch.ops import cuda_knn2
+
+    q, db = planted_u8(50, 600, seed=3)
+    if case == "one_row":
+        db = db[:1]
+    if case == "width_72":
+        q, db = q[:, :72].copy(), db[:, :72].copy()
+    on = "cpu" if case == "cpu" else dev
+    cast = (lambda a: a.astype(np.float32)) if case == "float32" else (
+        lambda a: a)
+    before = cuda_knn2.LAUNCHES
+    g = match.knn2(torch.as_tensor(cast(q), device=on),
+                   torch.as_tensor(cast(db), device=on))
+    torch.cuda.synchronize()
+    assert cuda_knn2.LAUNCHES == before + (3 if case == "uint8" else 0)
+    c = match.knn2(q, db, device="cpu")
+    assert torch.equal(g.idx.cpu(), c.idx)
+    assert torch.equal(g.dist.cpu(), c.dist)
+    if case == "one_row":
+        np.testing.assert_allclose(g.dist2.cpu().numpy(), c.dist2.numpy(),
+                                   rtol=1e-6)
+    else:
+        assert torch.equal(g.dist2.cpu(), c.dist2)
+
+
+def test_match_descriptors_u8_kernel_on_images(dev):
+    """match_descriptors on the uint8 descriptors of an image and its
+    crop, extracted on the card: K7 runs (both directions) and the pairs
+    equal the CPU's on the same descriptors."""
+    from hesaff_tpu_torch import extract, match
+    from hesaff_tpu_torch.ops import cuda_knn2
+
+    d = np.load(os.path.join(os.path.dirname(__file__), "golden", "data",
+                             "synth_200x160.npz"))
+    f1 = extract(d["gray"], CFG, device=dev)
+    f2 = extract(np.ascontiguousarray(d["gray"][20:150, 10:180]), CFG,
+                 device=dev)
+    assert f1.desc.dtype == np.uint8 and f1.n > 40 and f2.n > 20
+    for ratio, cross in ((0.8, True), (0.9, False)):
+        before = cuda_knn2.LAUNCHES
+        g = match.match_descriptors(torch.as_tensor(f1.desc, device=dev),
+                                    torch.as_tensor(f2.desc, device=dev),
+                                    ratio=ratio, cross_check=cross)
+        assert cuda_knn2.LAUNCHES == before + (6 if cross else 3)
+        c = match.match_descriptors(f1.desc, f2.desc, ratio=ratio,
+                                    cross_check=cross, device="cpu")
+        for a, b in zip(g, c):
+            np.testing.assert_array_equal(a, b)
+        assert len(g[0]) > 10
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -5,7 +5,9 @@ Descriptors are uint8 values held as float32, so every distance term is
 an integer below 2^24 and exact in any summation order: idx, dist and
 dist2 must be bit-equal to JAX's.  The sets plant duplicate rows (the
 same keypoint reached twice), within a block and across blocks, so ties
-exercise the first-index rule and dist2 == dist.
+exercise the first-index rule and dist2 == dist.  The same semantics
+hold the K7 kernel (ops/cuda_knn2) on the card; here its dispatch rule
+and its work plan are checked, which need no card.
 """
 
 import jax.numpy as jnp
@@ -15,13 +17,16 @@ import torch
 
 from hesaff_tpu import match as jmatch
 from hesaff_tpu_torch import match
+from hesaff_tpu_torch.ops import cuda_knn2
 from _torch_parity import n
 
 
-def planted(nq, m, seed):
+def planted(nq, m, seed, extremes=False):
     """uint8 query / database sets with duplicate database rows, some
     of them block-width (256) apart, and queries equal to database
-    rows."""
+    rows; query 0 is a copy of a row held twice (a duplicate minimum,
+    also at nq = 1 or m = 2).  With `extremes`, all-zero and all-255
+    rows (the zero row twice) and the last two queries of each."""
     rng = np.random.default_rng(seed)
     db = rng.integers(0, 256, (m, 128)).astype(np.uint8)
     src = rng.integers(0, m, m // 10)
@@ -29,12 +34,18 @@ def planted(nq, m, seed):
     db[dst] = db[src]
     for i in range(0, m - 256, 97):
         db[i + 256] = db[i]
+    db[m - 1] = db[0]
+    if extremes:
+        db[1], db[2], db[3] = 0, 255, 0
     q = rng.integers(0, 256, (nq, 128)).astype(np.uint8)
     pick = rng.integers(0, m, nq // 3)
     q[: nq // 3] = db[pick]
     noisy = np.clip(db[pick].astype(np.int32)
                     + rng.integers(-3, 4, (nq // 3, 128)), 0, 255)
     q[nq // 3: 2 * (nq // 3)] = noisy
+    q[0] = db[0]
+    if extremes:
+        q[-1], q[-2] = 0, 255
     return q, db
 
 
@@ -44,10 +55,18 @@ def jax_knn2(q, db, block):
     return n(m.idx), n(m.dist), n(m.dist2)
 
 
-@pytest.mark.parametrize("nq,m,block", [(300, 700, 256), (300, 700, 4096),
-                                        (257, 1000, 256), (64, 513, 256)])
-def test_knn2_bit_equal(nq, m, block):
-    q, db = planted(nq, m, seed=m)
+KNN2_CASES = [(300, 700, 256, False), (300, 700, 4096, False),
+              (257, 1000, 256, False), (64, 513, 256, False),
+              (1, 700, 256, False), (300, 2, 4096, False),
+              (1, 2, 4096, False), (300, 700, 256, True)]
+
+
+@pytest.mark.parametrize(
+    "nq,m,block,extremes", KNN2_CASES,
+    ids=[f"{nq}-{m}-{b}" + ("-extremes" if e else "")
+         for nq, m, b, e in KNN2_CASES])
+def test_knn2_bit_equal(nq, m, block, extremes):
+    q, db = planted(nq, m, seed=m, extremes=extremes)
     ref = jax_knn2(q, db, block)
     out = match.knn2(q, db, block=block, device="cpu")
     assert out.idx.dtype == torch.int32 and out.dist.dtype == torch.float32
@@ -56,6 +75,39 @@ def test_knn2_bit_equal(nq, m, block):
     # the planted ties are there: some queries have dist2 == dist
     assert (n(out.dist2) == n(out.dist)).any()
     assert (n(out.dist) == 0).sum() >= nq // 3
+    if extremes:
+        assert n(out.dist)[-1] == 0 and n(out.dist2)[-1] == 0
+        assert n(out.idx)[-1] == 1 and n(out.dist)[-2] == 0
+
+
+@pytest.mark.parametrize("nq,m", [(2750, 16_334_970), (2560, 16_334_970),
+                                  (1, 2), (37, 63), (1, 300_000),
+                                  (2750, 4097), (27_774, 27_774)])
+def test_knn2_u8_plan(nq, m):
+    """The kernel's work plan: whole tiles in every strip, one item a
+    (query tile, strip), CTAs that each get the same number of items or
+    one fewer; the Oxford5k query (~2,750 rows against 16.33 M) takes
+    one item an SM."""
+    n_sm = 132
+    strips, ctas = cuda_knn2.plan(nq, m, n_sm)
+    tiles = -(-m // cuda_knn2.DROWS)
+    items = -(-nq // cuda_knn2.QROWS) * strips
+    assert 1 <= strips <= tiles and ctas == min(items, n_sm)
+    assert items / ctas <= -(-items // ctas)
+    if (nq, m) == (2750, 16_334_970):
+        assert items == n_sm
+
+
+@pytest.mark.parametrize("q_dtype,db_rows", [(np.uint8, 300), (np.float32, 300),
+                                             (np.uint8, 1)])
+def test_knn2_cpu_keeps_the_plain_path(q_dtype, db_rows):
+    """CPU input, uint8 or not, never reaches the kernel, whatever the
+    database's row count."""
+    q, db = planted(40, 300, seed=5)
+    before = cuda_knn2.LAUNCHES
+    out = match.knn2(torch.from_numpy(q.astype(q_dtype)),
+                     torch.from_numpy(db[:db_rows]))
+    assert out.idx.device.type == "cpu" and cuda_knn2.LAUNCHES == before
 
 
 def test_knn2_single_row_padding():
