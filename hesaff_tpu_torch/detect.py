@@ -46,6 +46,7 @@ from hesaff_tpu_torch.config import HesaffConfig
 from hesaff_tpu_torch.ops import cuda_detect
 from hesaff_tpu_torch.ops.batching import compact_rows
 from hesaff_tpu_torch.ops.linalg import fdiv, solve3x3_parts
+from hesaff_tpu_torch.utils import profiling
 from hesaff_tpu_torch.utils.profiling import span
 
 HESSIAN_DARK = 0
@@ -311,12 +312,21 @@ def detect_level(low, cur, high, blur, cur_scale: float, pd: float,
     low/cur/high/blur: (B, H, W) planes (rows contiguous).  The maps come
     dense from K3; the candidates, compacted in raster order to
     `capacity` (overflow counted), walk through their windows of them.
+    K3 runs in a "sparse: maps" span, the compaction and the walk in a
+    "sparse: walk" span; while tracing, the counter
+    ``sparse_candidates`` (utils/profiling) adds the candidates walked,
+    on the device.
     """
-    maps, nan_flag, edge, mask = cuda_detect.detect_maps(low, cur, high,
-                                                         cfg, valid_hw)
-    rows, cols, valid, overflow = compact_candidates(mask, capacity)
-    ok, x, y, s, val, ptype, r_f, c_f = _walk_window(
-        maps, nan_flag, edge, blur, rows, cols, cur_scale, pd, cfg)
+    with span("sparse: maps"):
+        maps, nan_flag, edge, mask = cuda_detect.detect_maps(
+            low, cur, high, cfg, valid_hw)
+    with span("sparse: walk"):
+        rows, cols, valid, overflow = compact_candidates(mask, capacity)
+        if profiling.tracing():
+            profiling.counter("sparse_candidates", valid.device).add_(
+                valid.sum())
+        ok, x, y, s, val, ptype, r_f, c_f = _walk_window(
+            maps, nan_flag, edge, blur, rows, cols, cur_scale, pd, cfg)
     return LevelKeypoints(
         ok=ok & valid, x=x, y=y, s=s, response=val, type=ptype,
         r_final=r_f, c_final=c_f, overflow=overflow,
@@ -354,16 +364,17 @@ def compact_levels(levels: list[LevelKeypoints], capacity: int) -> dict:
 def detect_octave_sparse(resps, blurs, sig, pd: float, cfg: HesaffConfig,
                          octave: int = 0, valid_hw=None) -> dict:
     """Octave detection through detect_level: three levels, dedup, one
-    compaction to the affine capacity.  Only one level's maps are alive
-    at a time.  overflow counts the level capacities' and the affine
-    capacity's drops."""
+    compaction to the affine capacity (in a "sparse: dedup" span).  Only
+    one level's maps are alive at a time.  overflow counts the level
+    capacities' and the affine capacity's drops."""
     H, W = resps.shape[-2], resps.shape[-1]
     cap = cfg.level_capacity(H, W, octave)
     levels = [detect_level(resps[:, l - 1], resps[:, l], resps[:, l + 1],
                            blurs[:, l], sig[l], pd, cap, cfg, valid_hw)
               for l in range(1, cfg.num_scales + 1)]
-    levels = dedup_octave(levels, H, W)
-    comp = compact_levels(levels, cfg.affine_capacity(H, W, octave))
+    with span("sparse: dedup"):
+        levels = dedup_octave(levels, H, W)
+        comp = compact_levels(levels, cfg.affine_capacity(H, W, octave))
     comp["overflow"] = comp["overflow"] + sum(lk.overflow for lk in levels)
     comp["n_cand"] = sum(lk.n_cand for lk in levels)
     return comp

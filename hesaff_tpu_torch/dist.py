@@ -13,9 +13,11 @@ capacity, sorted by |a21| within the group, and extracts their patches
 with the fused patch kernel (ops/cuda_patches): at full resolution up
 to FULL_RES_GROUP_MAX, and above it from the downsampled pyramid level
 that tail_source_plan picks (the "pyramid tail").  Keypoints that
-overflow a group's capacity, or whose workspace exceeds the last group,
-are counted.  One masked SIFT pass (ops/cuda_sift) describes the slots
-whose patch is valid.
+overflow a group's capacity, or whose workspace exceeds the last group
+of a table that ends at or below JAX_GROUP_MAX (the JAX package's
+tables), are counted; a table that goes past it reaches the border
+limit, and what lies above it fails the border check.  One masked SIFT
+pass (ops/cuda_sift) describes the slots whose patch is valid.
 
 The bucket step (extraction_step, also named extraction_step_staged as
 in the JAX package, where the two give one result) is the reference
@@ -40,6 +42,7 @@ costs one flag read.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 from typing import NamedTuple, Sequence
 
@@ -65,6 +68,11 @@ from hesaff_tpu_torch.utils.profiling import span
 # port keeps the value because it decides which keypoints are warped
 # from a downsampled level, and so changes results.
 FULL_RES_GROUP_MAX = 384
+
+# The JAX package's table ends at this group; every keypoint above the
+# last group of a table that ends there counts as overflow, as it does
+# in the JAX package, though none of them can pass the border check.
+JAX_GROUP_MAX = 1025
 
 _FIELDS = ("x", "y", "s", "a11", "a12", "a21", "a22", "response")
 
@@ -92,24 +100,31 @@ def default_group_spec(height: int, width: int,
                        per_image_cap: int = 512, batch: int = 1):
     """Static (group bound, capacity) pairs for an image size.
 
-    Capacities follow the keypoint distribution measured on dense
-    synthetic 800x640 imagery at batch 16 (occupancy 18228 / 8601 /
-    2101 / 643 / 92 / 4 of 16384 slots) plus ~13% headroom, pooled
-    across the batch, rounded up to 32.  Groups above min(H, W) + 2
-    cannot pass the border check and are left out.
+    Groups up to 1,025: capacities follow the keypoint distribution
+    measured on dense synthetic 800x640 imagery at batch 16 (occupancy
+    18228 / 8601 / 2101 / 643 / 92 / 4 of 16384 slots) plus ~13%
+    headroom, pooled across the batch, rounded up to 32.  Past 1,025
+    the bounds double (2,049, 4,097, ...) until one reaches the border
+    limit min(H, W) + 2: groups above it cannot pass the border check
+    and are left out, and every keypoint below it has a group.  The
+    2,049 and 4,097 fractions follow 6048x4032 mosaics of that imagery
+    (occupancy, the most of 152 calls of 2 frames: 215 / 20 of 376,832
+    slots) plus ~25% headroom; later groups take the last fraction.
+    Every short side under 1,024 px stops at or before 1,025, where the
+    table is the JAX package's.
     """
     limit = min(height, width) + 2
     total = per_image_cap * batch
-    sizes = (49, 97, 193, 385, 641, 1025)
-    fracs = (1.26, 0.6, 0.15, 0.046, 0.0075, 0.002)
+    sizes = (49, 97, 193, 385, 641, 1025, 2049, 4097)
+    fracs = (1.26, 0.6, 0.15, 0.046, 0.0075, 0.002, 0.00072, 0.000066)
     spec = []
-    for bsize, frac in zip(sizes, fracs):
-        cap = max(32, int(total * frac))
+    for k in itertools.count():
+        bsize = sizes[k] if k < len(sizes) else 2 * spec[-1][0] - 1
+        cap = max(32, int(total * fracs[min(k, len(fracs) - 1)]))
         cap = ((cap + 31) // 32) * 32
         spec.append((bsize, cap))
         if bsize >= limit:
-            break
-    return tuple(spec)
+            return tuple(spec)
 
 
 def default_bucket_spec(height: int, width: int,
@@ -308,7 +323,12 @@ def extraction_step_grouped(images, cfg: HesaffConfig,
         overflow = overflow + over
     with span("assemble"):
         ws, its = _workspace(flat, cfg)
-        overflow = overflow + (flat["ok"] & (ws > groups[-1][0])).sum()
+        above = flat["ok"] & (ws > groups[-1][0])
+        if groups[-1][0] > JAX_GROUP_MAX:
+            # the table ends at the border limit: a workspace above it
+            # fails the border check, no capacity drops it
+            above = above & (ws <= min(images.shape[-2:]) + 2)
+        overflow = overflow + above.sum()
     if _mixed(cfg):
         with span("direct branch"):
             dcap = max(64, groups[0][1] // 4)

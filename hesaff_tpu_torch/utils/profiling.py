@@ -10,7 +10,9 @@
     each: their count is the number of host syncs.
   * `counter(name, device)`: a (1,) int64 tensor on the device that
     the program adds into while tracing (``k4_steps``: the Baumberg steps
-    K4 ran); `counters()` reads every total (that read synchronises).
+    K4 ran; ``sparse_candidates``: the candidates the sparse detection
+    path walked); `counters()` reads every total (that read
+    synchronises).
   * `trace_to(logdir)` records a torch.profiler trace (CPU, and CUDA
     where a GPU is present) and writes it as a Chrome trace JSON file
     into logdir when the block ends, also when it raises.

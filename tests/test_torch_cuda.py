@@ -25,8 +25,11 @@ run on uint8 descriptors (a single database row's padded dist2 at rtol
 thresholds; the Oxford file from CUDA tensors byte-equal to the one
 from their numpy copies.  Padded mode: K2 and K3 with per-image limits
 equal to their plain versions (the table and maps bit-equal to the
-unlimited call's), the padded grouped path equal to its CPU run.
-Geometry: an LM step bit-equal across two runs (dense and tracks),
+unlimited call's), the padded grouped path equal to its CPU run.  One
+6048x4032 mosaic frame (the benchmark's ETH3D configuration) through
+the grouped path with overflow 0, within the benchmark cell's limits of
+the plain reference.  Geometry: an LM step bit-equal across two runs
+(dense and tracks),
 within rtol 1e-4 / atol 1e-5 of the CPU step; ba_solve and
 incremental_sfm at tests/test_geom.py's and tests/test_sfm.py's
 thresholds.  Multi-device: the staged bucket step (K5 on every bucket at
@@ -1509,3 +1512,34 @@ def test_sift_width_round_trip_from_gpu(dev, tmp_path):
     np.testing.assert_array_equal(back["desc"], out.desc[v].cpu().numpy())
     empty = extract_batch(torch.zeros((1, 48, 56), device=dev), cfg)
     assert empty[0].desc.shape == (0, 72)
+
+
+def test_eth3d_frame_on_gpu(dev):
+    """One 6048x4032 mosaic frame (the benchmark's ETH3D high-res
+    configuration: octave 0 on the sparse path, groups to 4,097) at the
+    configuration's capacities: no overflow, and the benchmark cell's
+    limits against the plain reference on the card."""
+    from benchmark import features, harness, mosaic
+    from benchmark.reference import compare, group_table
+    from benchmark.reference.hesaff_plain import dist as plain
+    from hesaff_tpu_torch import dist
+
+    _, cell, config, _ = harness.load_cell("eth3d_6048x4032.batch2")
+    H, W = config["image"]["height"], config["image"]["width"]
+    img = mosaic.frames(W, H, config["tile"]["width"],
+                        config["tile"]["height"], 1, 64, 2**31 + 11, dev)
+    cap = config["per_image_cap"]
+    cfg = features.program_config(config)
+    groups = dist.default_group_spec(H, W, cfg, cap, 1)
+    assert groups[-1][0] == 4097
+    got = features.host_features(
+        dist.extraction_step_grouped(img, cfg, groups, device=dev))
+    pcfg = features.reference_config(config)
+    ref = features.host_features(plain.extraction_step_grouped(
+        torch.as_tensor(img, device=dev), pcfg,
+        group_table.judged_table(H, W, pcfg, cap, 1), device=dev))
+    assert got["overflow"] == 0 and len(got["x"]) > 10_000
+    gap = compare.features_gap([got], [ref])
+    limits = cell["limits"]
+    assert all(gap[k] <= limits[k] for k in gap), gap
+    torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 """The port's grouped serving path against the JAX package's.
 
-default_group_spec and tail_source_plan equal JAX's; the port's
-extraction_step_grouped on the CPU against JAX extraction_step_grouped
-(its Pallas kernels in interpret mode) on test_pallas.py's B = 2
-160x128 synthetic batch: equal valid counts, overflow 0 in both, equal
+default_group_spec and tail_source_plan equal JAX's (past a short side
+of 1,023 px the port's table has JAX's as a prefix and goes on past
+1,025); the port's extraction_step_grouped on the CPU against JAX
+extraction_step_grouped (its Pallas kernels in interpret mode) on
+test_pallas.py's B = 2 160x128 synthetic batch: equal valid counts, overflow 0 in both, equal
 (x, y, s)-keyed sets and descriptors within one step (test_pallas.py's
 grouped tolerances).  The key matches within 0.01 px and 1e-3 of s, the
 agreement of the port's phase A with JAX's (test_torch_pipeline.py):
@@ -44,7 +45,14 @@ def _synth(B, H, W):
     (2000, 3000, 512, 2), (13, 13, 512, 1)])
 def test_group_spec_and_tail_plan_match_jax(H, W, cap, B):
     spec = dist.default_group_spec(H, W, port_cfg(CFG), cap, B)
-    assert spec == jdist.default_group_spec(H, W, CFG, cap, B)
+    jspec = jdist.default_group_spec(H, W, CFG, cap, B)
+    if min(H, W) + 2 > 1025:
+        # past the 1,025 group the port goes on to the border limit,
+        # where the JAX package counts those keypoints as overflow
+        assert spec[:len(jspec)] == jspec
+        assert [b for b, _ in spec[len(jspec):]] == [2049]
+    else:
+        assert spec == jspec
     for bsize, _ in spec:
         for base_pd in (1.0, 0.5):
             if bsize > dist.FULL_RES_GROUP_MAX:
