@@ -291,7 +291,7 @@ def _walk_window(maps, nan_flag, edge, blur, r0, c0, cur_scale: float,
     weak = val.abs() < _f32(cfg.final_threshold)
     ok = ~rejected & ~shift_bad & ~weak
 
-    scale = (torch.tensor(cur_scale, dtype=torch.float32, device=r0.device)
+    scale = (torch.full((), cur_scale, dtype=torch.float32, device=r0.device)
              * torch.exp2(fdiv(b[..., 2], cfg.num_scales)))
     (bl,), (bc,), (br,) = (at(dr, dc + k, (3,)) for k in (-1, 0, 1))
     lxx = bl - 2.0 * bc + br
@@ -422,9 +422,12 @@ def detect_octave_dense(resps, blurs, sig, pd: float, cfg: HesaffConfig,
     cf = cellk - rf * W
     x = pd * (cf.float() + b0k)
     y = pd * (rf.float() + b1k)
-    with span("sync: sigmas"):      # a copy to the card waits for it
-        sig_v = torch.tensor(sig, dtype=torch.float32, device=resps.device)
-    sk = pd * (sig_v[level0 + 1] * torch.exp2(fdiv(b2k, cfg.num_scales)))
+    # the detection levels' sigmas, each filled on the card (a copy from
+    # the host would wait for the stream)
+    sig_v = torch.stack([torch.full((), s, dtype=torch.float32,
+                                    device=resps.device)
+                         for s in sig[1:nl + 1]])
+    sk = pd * (sig_v[level0] * torch.exp2(fdiv(b2k, cfg.num_scales)))
     ptype = torch.where(
         valk < 0, HESSIAN_SADDLE,
         torch.where(lxxk < 0, HESSIAN_DARK, HESSIAN_BRIGHT)).to(torch.int32)

@@ -552,8 +552,8 @@ class PipelinedExtractor:
     what crosses (the images and phase A's per-keypoint fields) is
     recorded on stage B's stream on the same device, or copied to
     stage B's device without blocking the host.  Phase A's compactions
-    read counts on the host, so stage A of microbatch t+1 and stage B of
-    t overlap only as far as the host allows.
+    keep fixed shapes on the device and wait on nothing, so the host
+    goes on to stage A of microbatch t+1 while stage B of t still runs.
     """
 
     def __init__(self, cfg: HesaffConfig, buckets: Sequence[tuple],

@@ -1,17 +1,15 @@
-"""Fixed-capacity stream compaction (plain PyTorch).
+"""Fixed-capacity stream compaction (plain PyTorch, no host sync).
 
 The JAX package compacts with cumsum compare-counts because a sort is
-slow on the TPU.  Here ``torch.nonzero`` gives the same row-major
-order.  The capacity stays, and what does not fit is counted.  The
-``nonzero`` and each boolean-mask index wait for the device to learn
-their sizes: each runs in a "sync: compact" span of its own.
+slow on the TPU.  Here one running count of the set elements (a scan of
+the flat mask) and a binary search of each slot's target in it give
+the same row-major order at fixed shapes, so nothing waits for the
+device.  The capacity stays, and what does not fit is counted.
 """
 
 from __future__ import annotations
 
 import torch
-
-from hesaff_tpu_torch.utils.profiling import span
 
 
 def compact_rows(mask: torch.Tensor, capacity: int):
@@ -21,23 +19,27 @@ def compact_rows(mask: torch.Tensor, capacity: int):
     overflow (B,) int64): idx[b, j] is the j-th set position of row b in
     ascending order (0 in unused slots).
     """
-    B, _ = mask.shape
-    counts = mask.sum(dim=1)
-    with span("sync: compact"):
-        rows, cols = mask.nonzero(as_tuple=True)
-    start = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(rows.numel(), device=mask.device) - start[rows]
-    fit = rank < capacity
-    kept = []
-    for t in (rows, rank, cols):
-        with span("sync: compact"):
-            kept.append(t[fit])
-    idx = torch.zeros((B, capacity), dtype=torch.int64, device=mask.device)
-    idx[kept[0], kept[1]] = kept[2]
-    slots = torch.arange(capacity, device=mask.device)
+    B, N = mask.shape
+    dev = mask.device
+    slots = torch.arange(capacity, device=dev)
+    if N == 0:
+        none = torch.zeros(B, dtype=torch.int64, device=dev)
+        return (torch.zeros((B, capacity), dtype=torch.int64, device=dev),
+                slots[None, :] < none[:, None], none)
+    # the running count over the flat mask, rows one after another (one
+    # device-wide scan): the (j+1)-th set element of row b is where it
+    # first reaches the count before row b plus j + 1
+    dt = torch.int32 if mask.numel() < 2**31 else torch.int64
+    run = torch.cumsum(mask.reshape(-1), 0, dtype=dt)
+    ends = run.view(B, N)[:, -1]
+    before = torch.cat([ends.new_zeros(1), ends[:-1]])
+    counts = (ends - before).long()
+    target = before[:, None] + (slots + 1).to(dt)
+    pos = torch.searchsorted(run, target.reshape(-1)).view(B, capacity)
     valid = slots[None, :] < counts[:, None]
-    overflow = torch.clamp_min(counts - capacity, 0)
-    return idx, valid, overflow
+    rowbase = torch.arange(B, device=dev)[:, None] * N
+    idx = torch.where(valid, pos - rowbase, 0)
+    return idx, valid, torch.clamp_min(counts - capacity, 0)
 
 
 def compact_indices(mask: torch.Tensor, capacity: int):

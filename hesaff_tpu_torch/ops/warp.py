@@ -15,8 +15,6 @@ from __future__ import annotations
 
 import torch
 
-from hesaff_tpu_torch.utils.profiling import span
-
 
 def affine_grid(out_h: int, out_w: int, ofsx, ofsy, a11, a12, a21, a22):
     """Coordinates of a centred out_h x out_w affine grid.
@@ -97,16 +95,15 @@ def check_borders(h, w, out_h: int, out_w: int,
     height = h - 2
     half_w = out_w >> 1
     half_h = out_h >> 1
-    # each copy to the card waits for it
-    with span("sync: corners"):
-        xs = torch.tensor([-half_w, -half_w, half_w, half_w],
-                          dtype=torch.float32, device=ref.device)
-    with span("sync: corners"):
-        ys = torch.tensor([-half_h, half_h, -half_h, half_h],
-                          dtype=torch.float32, device=ref.device)
-    ex = lambda v: v[..., None] if isinstance(v, torch.Tensor) else v
+    # the corners' offsets as a 2 x 2 grid (x down, y across), made on
+    # the card (a copy from the host would wait for the stream)
+    xs = torch.linspace(-half_w, half_w, 2, dtype=torch.float32,
+                        device=ref.device)[:, None]
+    ys = torch.linspace(-half_h, half_h, 2, dtype=torch.float32,
+                        device=ref.device)
+    ex = lambda v: v[..., None, None] if isinstance(v, torch.Tensor) else v
     imx = ex(ofsx) + xs * ex(a11) + ys * ex(a12)
     imy = ex(ofsy) + xs * ex(a21) + ys * ex(a22)
     bad = ((torch.floor(imx) <= 0) | (torch.floor(imy) <= 0)
            | (torch.ceil(imx) >= ex(width)) | (torch.ceil(imy) >= ex(height)))
-    return bad.any(dim=-1)
+    return bad.flatten(-2).any(dim=-1)

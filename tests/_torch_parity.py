@@ -102,3 +102,43 @@ def assert_same_features(ref, out, overflow: int = 0):
     assert out.desc.dtype == torch.uint8
     assert not od[~ov].any()
     return pairs
+
+
+def compact_rows_nonzero(mask, capacity: int):
+    """The port's compaction as it was through `nonzero` and boolean
+    indexes (each a wait on the device): the oracle of the fixed-shape
+    `ops.batching.compact_rows`."""
+    B, _ = mask.shape
+    counts = mask.sum(dim=1)
+    rows, cols = mask.nonzero(as_tuple=True)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(rows.numel(), device=mask.device) - start[rows]
+    fit = rank < capacity
+    idx = torch.zeros((B, capacity), dtype=torch.int64, device=mask.device)
+    idx[rows[fit], rank[fit]] = cols[fit]
+    slots = torch.arange(capacity, device=mask.device)
+    valid = slots[None, :] < counts[:, None]
+    return idx, valid, torch.clamp_min(counts - capacity, 0)
+
+
+# (density, rows, capacity) over rows of 37 * 41: capacities below, at
+# and above the row length; "edge" masks; rows of no element
+ROW = 37 * 41
+COMPACTION_CASES = ([(d, b, c) for d in (0.0, 0.01, 0.5, 1.0) for b in (1, 3)
+                     for c in (ROW // 4, ROW, ROW + ROW // 2)]
+                    + [("edge", 3, ROW // 4), ("edge", 3, ROW),
+                       ("empty", 2, 8)])
+
+
+def compaction_mask(density, rows: int, seed: int = 0):
+    """A (rows, ROW) random mask of that density; an "edge" mask has a
+    full row (past any capacity under ROW), an empty one, then rows of
+    density 0.5; an "empty" mask is (rows, 0)."""
+    rng = np.random.default_rng(seed)
+    if density == "empty":
+        return torch.zeros((rows, 0), dtype=torch.bool)
+    if density != "edge":
+        return torch.from_numpy(rng.random((rows, ROW)) < density)
+    mask = rng.random((rows, ROW)) < 0.5
+    mask[0], mask[1] = True, False
+    return torch.from_numpy(mask)

@@ -25,7 +25,10 @@ run on uint8 descriptors (a single database row's padded dist2 at rtol
 thresholds; the Oxford file from CUDA tensors byte-equal to the one
 from their numpy copies.  Padded mode: K2 and K3 with per-image limits
 equal to their plain versions (the table and maps bit-equal to the
-unlimited call's), the padded grouped path equal to its CPU run.  One
+unlimited call's), the padded grouped path equal to its CPU run.  The
+fixed-shape compaction equal to the nonzero-based one element for
+element; a grouped step of images on the card (dense and sparse octave
+0) with no host sync under set_sync_debug_mode("error").  One
 6048x4032 mosaic frame (the benchmark's ETH3D configuration) through
 the grouped path with overflow 0, within the benchmark cell's limits of
 the plain reference.  Geometry: an LM step bit-equal across two runs
@@ -47,7 +50,9 @@ import pytest
 import torch
 
 from hesaff_tpu_torch.config import HesaffConfig
-from _torch_parity import assert_affine_parity, smooth_stacks
+from _torch_parity import (COMPACTION_CASES, assert_affine_parity,
+                           compact_rows_nonzero, compaction_mask,
+                           smooth_stacks)
 from _torch_scenes import ba_problem, sfm_scene
 
 pytestmark = pytest.mark.cuda
@@ -607,6 +612,61 @@ def test_grouped_on_gpu_matches_cpu(dev):
         j = int(np.argmin(np.hypot(gx - x, gy - y)))
         assert np.hypot(gx[j] - x, gy[j] - y) < 0.01
         assert np.abs(gd[j] - cd[i]).max() <= 2
+
+
+def test_compact_rows_on_gpu_equals_nonzero_compaction(dev):
+    """The fixed-shape compaction on the card equals the nonzero-based
+    one and its own CPU run element for element, at the CPU test's
+    cases and at octave 0 of a 16 x 800x640 batch (3 levels)."""
+    from hesaff_tpu_torch.ops import batching
+
+    cases = [(compaction_mask(d, b), c) for d, b, c in COMPACTION_CASES]
+    g = torch.Generator().manual_seed(0)
+    big = torch.rand((16, 3 * 640 * 800), generator=g) < 4e-3
+    cases += [(big, 8192), (big, 128)]
+    for mask, cap in cases:
+        out = batching.compact_rows(mask.to(dev), cap)
+        ref = compact_rows_nonzero(mask.to(dev), cap)
+        cpu = batching.compact_rows(mask, cap)
+        for o, r, c in zip(out, ref, cpu):
+            assert torch.equal(o, r) and torch.equal(o.cpu(), c)
+        flat = batching.compact_indices(mask.to(dev), cap)
+        ref = compact_rows_nonzero(mask.reshape(1, -1).to(dev), cap)
+        for o, r in zip(flat, ref):
+            assert torch.equal(o, r[0])
+
+
+@pytest.mark.parametrize("path", ["dense", "sparse"])
+def test_grouped_step_no_host_sync(dev, path, monkeypatch):
+    """A grouped step of images already on the card runs under
+    torch.cuda.set_sync_debug_mode("error"): no compaction, sigma,
+    corner offset or scale waits on the device (the sparse case takes
+    octave 0 through K3 and the walk).  The same call again gives the
+    same outputs."""
+    import sys
+
+    from hesaff_tpu_torch import detect, dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "golden"))
+    import gen_images
+
+    if path == "sparse":
+        monkeypatch.setattr(detect, "SPARSE_PATH_PIXELS", 1 << 16)
+    B, H, W = 2, 240, 320
+    imgs = torch.as_tensor(np.stack([
+        gen_images.synth_image(W, H, seed=s).astype(np.float32).mean(-1)
+        for s in range(B)]), device=dev)
+    groups = dist.default_group_spec(H, W, CFG, per_image_cap=512, batch=B)
+    warm = dist.extraction_step_grouped(imgs, CFG, groups)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dist.extraction_step_grouped(imgs, CFG, groups)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out.valid.sum()) > 50
+    for o, w in zip(out, warm):
+        torch.testing.assert_close(o, w, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("entry", ["extract", "grouped"])

@@ -17,7 +17,8 @@ from hesaff_tpu.ops import resample as jres
 from hesaff_tpu.ops import warp as jwarp
 from hesaff_tpu_torch.ops import batching, blur, hessian, linalg, resample
 from hesaff_tpu_torch.ops import warp
-from _torch_parity import n, t
+from _torch_parity import (COMPACTION_CASES, compact_rows_nonzero,
+                           compaction_mask, n, t)
 
 ATOL = 1e-5
 
@@ -157,3 +158,18 @@ def test_compact_indices(density, capacity):
     out = batching.compact_indices(t(mask), capacity)
     for r, o in zip(ref, out):
         np.testing.assert_array_equal(n(o), n(r))
+
+
+@pytest.mark.parametrize("density,rows,capacity", COMPACTION_CASES)
+def test_compact_rows_equals_nonzero_compaction(density, rows, capacity):
+    """The fixed-shape compaction equals the nonzero-based one element
+    for element: idx, valid and overflow, by rows and flat."""
+    mask = compaction_mask(density, rows)
+    out = batching.compact_rows(mask, capacity)
+    ref = compact_rows_nonzero(mask, capacity)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r)
+    flat = batching.compact_indices(mask, capacity)
+    ref = compact_rows_nonzero(mask.reshape(1, -1), capacity)
+    for o, r in zip(flat, ref):
+        assert o.dtype == r.dtype and torch.equal(o, r[0])

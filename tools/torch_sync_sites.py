@@ -26,7 +26,8 @@ from collections import Counter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.sep + "hesaff_tpu_torch" + os.sep
-CELLS = ("oxford_affine_800x640.batch16", "oxford5k_1024x768.query")
+CELLS = ("oxford_affine_800x640.batch16", "oxford5k_1024x768.query",
+         "eth3d_6048x4032.batch2")
 
 
 def span_stack():
