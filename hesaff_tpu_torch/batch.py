@@ -1,4 +1,5 @@
-"""Batched multi-image extraction: the port's main path.
+"""Batched multi-image extraction: phase A, the bucket phase B, and
+extract_batch.
 
 Port of ``hesaff_tpu/batch.py``, padded (valid_hw) mode included: a
 batch edge-padded to a shape bucket (utils/fleet.pad_to_bucket) carries
@@ -12,16 +13,24 @@ detection walk (dense, or sparse for octaves of 2^23 px or more), and
 the affine adaptation of the cross-image flattened
 keypoints; then the rectified frames.  Each octave's three stages run
 in profiler spans "A: ladder", "A: detect" and "A: affine"
-(utils/profiling.span).  Phase B: the keypoint arrays go
-to the host, accepted keypoints of the whole batch are grouped by patch
-workspace bucket, each bucket's patches are extracted on the device
-(through the fused patch kernel on a GPU), and one SIFT pass (the SIFT
-kernel on a GPU) describes them all.
+(utils/profiling.span).
+
+The bucket phase B (bucket_phase_b), shared by extract_batch and the
+bucket step of dist.py: per BUCKET_SIZES bucket of a table, the
+accepted keypoints with a workspace in the bucket, compacted in
+row-major slot order into the bucket's capacity (a "bucket N" span),
+their patches through patches.extract_bucket_batch, then one masked
+SIFT pass ("assemble", "SIFT").  The slot gathering and assembly are
+shared with the grouped serving path (dist.extraction_step_grouped).
+extract_batch reads the per-bucket counts of accepted keypoints once
+and gives them as the capacities, so no capacity drops a keypoint.
 """
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -29,10 +38,11 @@ import torch
 from hesaff_tpu_torch.affine_shape import adapt_flat
 from hesaff_tpu_torch.config import DEFAULT_CONFIG, HesaffConfig
 from hesaff_tpu_torch.detect import detect_octave_batch, detect_octave_sparse
-from hesaff_tpu_torch.ops.cuda_sift import sift_descriptors
+from hesaff_tpu_torch.ops.batching import compact_indices
+from hesaff_tpu_torch.ops.cuda_patches import patch_geometry
+from hesaff_tpu_torch.ops.cuda_sift import describe_masked
 from hesaff_tpu_torch.ops.linalg import rectify_up_is_up
-from hesaff_tpu_torch.patches import (BUCKET_SIZES, bucket_for,
-                                      extract_bucket_batch, patch_image_size)
+from hesaff_tpu_torch.patches import BUCKET_SIZES, extract_bucket_batch
 from hesaff_tpu_torch.pipeline import ExtractStats, Features, resolve_device
 from hesaff_tpu_torch.pyramid import (build_octave, level_sigmas,
                                       prepare_first_level)
@@ -158,8 +168,110 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig,
     return out
 
 
-def _pad_to(n: int, minimum: int = 64) -> int:
-    return max(minimum, 1 << (n - 1).bit_length()) if n else minimum
+_FIELDS = ("x", "y", "s", "a11", "a12", "a21", "a22", "response")
+
+
+class DenseFeatures(NamedTuple):
+    """Fixed-capacity output of phase B (masked by `valid`)."""
+
+    valid: torch.Tensor     # (K,) bool
+    img_idx: torch.Tensor   # (K,) int32 index into the image batch
+    x: torch.Tensor         # (K,)
+    y: torch.Tensor
+    s: torch.Tensor
+    a11: torch.Tensor
+    a12: torch.Tensor
+    a21: torch.Tensor
+    a22: torch.Tensor
+    response: torch.Tensor
+    type: torch.Tensor      # (K,) int32
+    desc: torch.Tensor      # (K, 128) uint8; zero where not valid
+    overflow: torch.Tensor  # () int64: keypoints dropped by capacity
+
+
+def phase_a(images: torch.Tensor, cfg: HesaffConfig, valid_hw=None):
+    """Phase A with flat per-slot fields; valid_hw: None or (B, 2) int32
+    true sizes of edge-padded images.
+
+    Returns (flat fields (B * N_cap,), next_firsts, candidate overflow,
+    slots per image)."""
+    with span("phase A"):
+        out = detect_affine_batch(images, cfg, valid_hw)
+    levels_a = out.pop("next_firsts")
+    flat = {k: v.reshape(-1) for k, v in out.items()
+            if k not in ("overflow", "n_cand")}
+    return flat, levels_a, out["overflow"].sum(), out["ok"].shape[1]
+
+
+def gather_slots(flat, idx, valid, ncap: int, sort: bool):
+    """Keypoint fields of compacted slots; with `sort`, valid slots are
+    ordered by |a21| (stable), padding last, as the JAX package orders
+    each group's slots.  Returns (img_idx, fields, valid)."""
+    if sort:
+        key = torch.where(valid, flat["a21"][idx].abs(), math.inf)
+        order = torch.sort(key, stable=True).indices
+        idx, valid = idx[order], valid[order]
+    gi = (idx // ncap).to(torch.int32)
+    a = {k: flat[k][idx] for k in _FIELDS}
+    a["type"] = flat["type"][idx].to(torch.int32)
+    return gi, a, valid
+
+
+def describe_valid(patches, valid, cfg: HesaffConfig):
+    """uint8 descriptors of the valid slots; zero rows elsewhere (one
+    masked SIFT launch over every slot on the card)."""
+    with span("SIFT"):
+        return describe_masked(patches, valid, cfg)
+
+
+def assemble(pieces, overflow, cfg: HesaffConfig) -> DenseFeatures:
+    """DenseFeatures of (patches, ok, img_idx, fields) pieces, slots in
+    piece order, described by one masked SIFT pass."""
+    with span("assemble"):
+        patches = torch.cat([p[0] for p in pieces])
+        pvalid = torch.cat([p[1] for p in pieces])
+        fields = {k: torch.cat([p[3][k] for p in pieces])
+                  for k in (*_FIELDS, "type")}
+        img_idx = torch.cat([p[2] for p in pieces])
+    return DenseFeatures(valid=pvalid, img_idx=img_idx, **fields,
+                         desc=describe_valid(patches, pvalid, cfg),
+                         overflow=overflow)
+
+
+def bucket_phase_b(images, flat, ncap: int, overflow, cfg: HesaffConfig,
+                   buckets: Sequence[tuple], valid_hw=None):
+    """Phase B of the bucket step from phase A's flat fields.
+
+    Per bucket of `buckets` ((size, capacity), ...), in order (JAX
+    dist.py _bucket_select_stage): the accepted keypoints with ws in
+    (previous size, size] compacted into the bucket's capacity in
+    row-major slot order, their patches at full resolution
+    (patches.extract_bucket_batch); then one masked SIFT pass over every
+    slot.  overflow: phase A's count, to which the keypoints over a
+    capacity and those above the last bucket are added.  valid_hw: None
+    or the (B, 2) true sizes of edge-padded images, for the corner
+    check.  Returns (DenseFeatures, slots): slots, per bucket, the
+    (capacity,) int64 index of each of its output slots into the flat
+    fields (0 in padding slots).
+    """
+    _, ws, _ = patch_geometry(flat["s"], cfg)
+    pieces, slots = [], []
+    prev = 0
+    for bsize, bcap in buckets:
+        with span(f"bucket {bsize}"):
+            m = flat["ok"] & (ws > prev) & (ws <= bsize)
+            idx, valid, over = compact_indices(m, bcap)
+            gi, a, valid = gather_slots(flat, idx, valid, ncap, sort=False)
+            pk, pok = extract_bucket_batch(
+                images, bsize, gi,
+                *(a[k] for k in ("x", "y", "s", "a11", "a12", "a21", "a22")),
+                cfg, active=valid, prev_bucket=prev, valid_hw=valid_hw)
+        pieces.append((pk, pok, gi, a))
+        slots.append(idx)
+        overflow = overflow + over
+        prev = bsize
+    overflow = overflow + (flat["ok"] & (ws > buckets[-1][0])).sum()
+    return assemble(pieces, overflow, cfg), slots
 
 
 def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
@@ -179,87 +291,58 @@ def extract_batch(images, cfg: HesaffConfig = DEFAULT_CONFIG,
     padding instead of the unpadded run's zeros: the documented
     tolerance of the mode).
 
-    Each Features.desc is (n, sb*sb*ob) uint8, an image with no
-    descriptor included (0, sb*sb*ob).  Here the port departs from the
-    JAX package, whose empty batch gives (0, 128) at any bin layout.
+    Phase A, one host read of the funnel's counts and of the accepted
+    keypoints in each BUCKET_SIZES bucket, then bucket_phase_b with
+    those counts as capacities; keypoints above the last bucket are
+    counted in bucket_overflow.  Each Features holds its image's
+    described keypoints in emission order (ascending phase-A slot); its
+    desc is (n, sb*sb*ob) uint8, an image with no descriptor included
+    (0, sb*sb*ob).  Here the port departs from the JAX package, whose
+    empty batch gives (0, 128) at any bin layout.
     """
     images = torch.as_tensor(images, dtype=torch.float32,
                              device=resolve_device(images, device))
     images = images.contiguous()
+    dev = images.device
     B = images.shape[0]
-    valid_hw = as_valid_hw(valid_hw, images.device)
+    valid_hw = as_valid_hw(valid_hw, dev)
+    bounds = torch.tensor(BUCKET_SIZES, dtype=torch.int32, device=dev)
     out = detect_affine_batch(images, cfg, valid_hw)
-    out.pop("next_firsts")
-    out = {k: v.cpu().numpy() for k, v in out.items()}
+    ncap = out["ok"].shape[1]
+    flat = {k: v.reshape(-1) for k, v in out.items()
+            if k not in ("overflow", "n_cand", "next_firsts")}
 
-    ok = out["ok"]
-    num_kp = int(out["det_ok"].sum())
-    num_cand = int(out["n_cand"].sum())
-    cand_overflow = int(out["overflow"].sum())
+    # per bucket, and above the last one, the accepted keypoints
+    _, ws, _ = patch_geometry(flat["s"], cfg)
+    which = torch.bucketize(ws, bounds)
+    in_bucket = (which == torch.arange(len(BUCKET_SIZES) + 1,
+                                       device=dev)[:, None]) & flat["ok"]
+    counts = torch.cat([torch.stack([out["n_cand"].sum(),
+                                     flat["det_ok"].sum(),
+                                     out["overflow"].sum()]),
+                        in_bucket.sum(1)]).tolist()
+    num_cand, num_kp, cand_overflow, *per_bucket = counts
+    buckets = tuple((b, c) for b, c in zip(BUCKET_SIZES, per_bucket) if c)
 
-    img_idx, slot = np.nonzero(ok)
-    fields = {k: out[k][img_idx, slot]
-              for k in ("x", "y", "s", "response", "type",
-                        "a11", "a12", "a21", "a22")}
-    n_aff = len(img_idx)
-
-    patches = torch.zeros((n_aff, cfg.patch_size, cfg.patch_size),
-                          dtype=torch.float32, device=images.device)
-    patch_ok = np.zeros(n_aff, bool)
-    bucket_overflow = 0
-    if n_aff:
-        S = patch_image_size(fields["s"], cfg.mr_size)
-        groups = defaultdict(list)
-        for i, w in enumerate(S + 2):
-            b = bucket_for(int(w))
-            if b < 0:
-                bucket_overflow += 1
-                continue
-            groups[b].append(i)
-        dev = images.device
-        for b, idx in sorted(groups.items()):
-            idx = np.asarray(idx)
-            npad = _pad_to(len(idx))
-            sel = np.zeros(npad, np.int64)
-            sel[: len(idx)] = idx
-            bi = BUCKET_SIZES.index(b)
-            arg = lambda a: torch.as_tensor(a[sel], device=dev)
-            pk, pok = extract_bucket_batch(
-                images, b, arg(img_idx.astype(np.int32)),
-                *(arg(fields[k]) for k in
-                  ("x", "y", "s", "a11", "a12", "a21", "a22")),
-                cfg, active=torch.arange(npad, device=dev) < len(idx),
-                prev_bucket=BUCKET_SIZES[bi - 1] if bi else 0,
-                valid_hw=valid_hw,
-            )
-            patches[torch.as_tensor(idx, device=dev)] = pk[: len(idx)]
-            patch_ok[idx] = pok[: len(idx)].cpu().numpy()
-
-    described = np.nonzero(patch_ok)[0]
-    n_desc = len(described)
-    if n_desc:
-        pin = patches[torch.as_tensor(described, device=images.device)]
-        descs = sift_descriptors(pin, cfg).cpu().numpy().astype(np.uint8)
-    else:
-        descs = np.zeros((0, cfg.spatial_bins ** 2 * cfg.orientation_bins),
-                         np.uint8)
-
-    feats_out = []
-    di = img_idx[described]
-    for bimg in range(B):
-        m = di == bimg
-        rows = described[m]
-        feats_out.append(Features(
-            x=fields["x"][rows], y=fields["y"][rows], s=fields["s"][rows],
-            a11=fields["a11"][rows], a12=fields["a12"][rows],
-            a21=fields["a21"][rows], a22=fields["a22"][rows],
-            response=fields["response"][rows],
-            type=fields["type"][rows].astype(np.int32),
-            desc=descs[m],
-        ))
+    nd = cfg.spatial_bins ** 2 * cfg.orientation_bins
+    cols = {k: np.zeros(0, np.float32) for k in _FIELDS}
+    cols["type"] = np.zeros(0, np.int32)
+    cols["desc"] = np.zeros((0, nd), np.uint8)
+    img = np.zeros(0, np.int32)
+    if buckets:
+        dense, slots = bucket_phase_b(images, flat, ncap, 0, cfg, buckets,
+                                      valid_hw)
+        keep = dense.valid.cpu().numpy()
+        order = np.argsort(torch.cat(slots).cpu().numpy()[keep])
+        host = lambda t: t.cpu().numpy()[keep][order]
+        cols = {k: host(getattr(dense, k)) for k in cols}
+        img = host(dense.img_idx)
+    ends = np.searchsorted(img, np.arange(B + 1))
+    feats_out = [Features(**{k: v[lo:hi] for k, v in cols.items()})
+                 for lo, hi in zip(ends[:-1], ends[1:])]
     stats = ExtractStats(
-        num_candidates=num_cand, num_keypoints=num_kp, num_affine=n_aff,
-        num_described=n_desc, candidate_overflow=cand_overflow,
-        bucket_overflow=bucket_overflow,
+        num_candidates=num_cand, num_keypoints=num_kp,
+        num_affine=sum(per_bucket), num_described=len(img),
+        candidate_overflow=cand_overflow, bucket_overflow=per_bucket[-1],
     )
     return (feats_out, stats) if return_stats else feats_out

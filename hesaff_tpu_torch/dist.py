@@ -7,7 +7,9 @@ package splits the step into separately compiled stages; here one
 Python function loops over the groups and every result stays on the
 device.
 
-Phase A is batch.detect_affine_batch.  Phase B selects the accepted
+Phase A is batch.phase_a (batch.detect_affine_batch, flattened), and
+the slot gathering, the assembly and DenseFeatures are batch.py's,
+which dist re-exports.  Phase B selects the accepted
 keypoints of each workspace group (default_group_spec) into its fixed
 capacity, sorted by |a21| within the group, and extracts their patches
 with the fused patch kernel (ops/cuda_patches): at full resolution up
@@ -21,7 +23,8 @@ pass (ops/cuda_sift) describes the slots whose patch is valid.
 
 The bucket step (extraction_step, also named extraction_step_staged as
 in the JAX package, where the two give one result) is the reference
-the serving path is held against: the same phase A, then every
+the serving path is held against: the same phase A, then
+batch.bucket_phase_b, the phase B of batch.extract_batch too: every
 BUCKET_SIZES bucket at full resolution (default_bucket_spec), slots in
 row-major order, no sort and no pyramid tail.
 
@@ -44,20 +47,23 @@ from __future__ import annotations
 import contextlib
 import itertools
 import math
-from typing import NamedTuple, Sequence
+from typing import Sequence
 
 import torch
 import torch.distributed as tdist
 
 from hesaff_tpu_torch import comm
-from hesaff_tpu_torch.batch import as_valid_hw, detect_affine_batch
+from hesaff_tpu_torch.batch import (  # noqa: F401 (re-exported)
+    DenseFeatures, as_valid_hw, assemble, bucket_phase_b, describe_valid,
+    gather_slots, phase_a)
 from hesaff_tpu_torch.config import DEFAULT_CONFIG, HesaffConfig
 from hesaff_tpu_torch.ops.batching import compact_indices
-from hesaff_tpu_torch.ops.cuda_patches import (extract_group,
-                                               extract_group_scaled)
-from hesaff_tpu_torch.ops.cuda_sift import describe_masked
-from hesaff_tpu_torch.patches import (BUCKET_SIZES, _min_workspace,
-                                      direct_patches, extract_bucket_batch)
+from hesaff_tpu_torch.ops.cuda_patches import (direct_possible,
+                                               extract_group,
+                                               extract_group_scaled,
+                                               patch_geometry, takes_direct)
+from hesaff_tpu_torch.patches import (BUCKET_SIZES, direct_patches,
+                                      extract_bucket_batch)
 from hesaff_tpu_torch.pipeline import resolve_device
 from hesaff_tpu_torch.pyramid import scaled_first_level
 from hesaff_tpu_torch.utils.profiling import span
@@ -73,27 +79,6 @@ FULL_RES_GROUP_MAX = 384
 # last group of a table that ends there counts as overflow, as it does
 # in the JAX package, though none of them can pass the border check.
 JAX_GROUP_MAX = 1025
-
-_FIELDS = ("x", "y", "s", "a11", "a12", "a21", "a22", "response")
-
-
-class DenseFeatures(NamedTuple):
-    """Fixed-capacity output of the grouped path (masked by `valid`)."""
-
-    valid: torch.Tensor     # (K,) bool
-    img_idx: torch.Tensor   # (K,) int32 index into the image batch
-    x: torch.Tensor         # (K,)
-    y: torch.Tensor
-    s: torch.Tensor
-    a11: torch.Tensor
-    a12: torch.Tensor
-    a21: torch.Tensor
-    a22: torch.Tensor
-    response: torch.Tensor
-    type: torch.Tensor      # (K,) int32
-    desc: torch.Tensor      # (K, 128) uint8; zero where not valid
-    overflow: torch.Tensor  # () int64: keypoints dropped by capacity
-
 
 def default_group_spec(height: int, width: int,
                        cfg: HesaffConfig = DEFAULT_CONFIG,
@@ -186,56 +171,6 @@ def tail_source_level(images, cfg: HesaffConfig, octave: int, levels_a,
     return cache[octave]
 
 
-def _workspace(flat, cfg: HesaffConfig):
-    """(ws, its) of every flat slot: ws = S + 2, its = S / P."""
-    S = 2 * torch.ceil(flat["s"] * cfg.mr_size).to(torch.int32) + 1
-    its = S.float() / torch.full((), cfg.patch_size, dtype=torch.float32,
-                                 device=S.device)
-    return S + 2, its
-
-
-def _gather(flat, idx, valid, ncap: int, sort: bool):
-    """Keypoint fields of compacted slots; with `sort`, valid slots are
-    ordered by |a21| (stable), padding last, as the JAX package orders
-    each group's slots."""
-    if sort:
-        key = torch.where(valid, flat["a21"][idx].abs(), math.inf)
-        order = torch.sort(key, stable=True).indices
-        idx, valid = idx[order], valid[order]
-    gi = (idx // ncap).to(torch.int32)
-    a = {k: flat[k][idx] for k in _FIELDS}
-    a["type"] = flat["type"][idx].to(torch.int32)
-    return gi, a, valid
-
-
-def describe_valid(patches, valid, cfg: HesaffConfig):
-    """uint8 descriptors of the valid slots; zero rows elsewhere (one
-    masked SIFT launch over every slot on the card)."""
-    with span("SIFT"):
-        return describe_masked(patches, valid, cfg)
-
-
-def phase_a(images: torch.Tensor, cfg: HesaffConfig, valid_hw=None):
-    """Phase A with flat per-slot fields; valid_hw: None or (B, 2) int32
-    true sizes of edge-padded images.
-
-    Returns (flat fields (B * N_cap,), next_firsts, candidate overflow,
-    slots per image)."""
-    with span("phase A"):
-        out = detect_affine_batch(images, cfg, valid_hw)
-    levels_a = out.pop("next_firsts")
-    flat = {k: v.reshape(-1) for k, v in out.items()
-            if k not in ("overflow", "n_cand")}
-    return flat, levels_a, out["overflow"].sum(), out["ok"].shape[1]
-
-
-def _mixed(cfg: HesaffConfig) -> bool:
-    """Whether any keypoint can take the direct warp; under the default
-    configuration none can (its smallest workspace is above
-    oversample_cutoff * P + 2)."""
-    return _min_workspace(cfg) <= cfg.oversample_cutoff * cfg.patch_size + 2
-
-
 def group_selections(flat, cfg: HesaffConfig, groups: Sequence[tuple],
                      ncap: int):
     """Per group, in order: (bound, previous bound, img_idx, fields,
@@ -243,8 +178,8 @@ def group_selections(flat, cfg: HesaffConfig, groups: Sequence[tuple],
     bound], compacted into the group's capacity.  Direct-branch
     keypoints are left out of the full-resolution groups when the
     configuration has any."""
-    ws, its = _workspace(flat, cfg)
-    skip = (its <= cfg.oversample_cutoff) if _mixed(cfg) else None
+    _, ws, its = patch_geometry(flat["s"], cfg)
+    skip = takes_direct(its, cfg) if direct_possible(cfg) else None
     prev = 0
     for bsize, bcap in groups:
         with span(f"group {bsize}: select"):
@@ -253,8 +188,8 @@ def group_selections(flat, cfg: HesaffConfig, groups: Sequence[tuple],
             if full and skip is not None:
                 m = m & ~skip
             idx, valid, over = compact_indices(m, bcap)
-            gi, a, valid = _gather(flat, idx, valid, ncap,
-                                   sort=full or cfg.tail_from_pyramid)
+            gi, a, valid = gather_slots(flat, idx, valid, ncap,
+                                        sort=full or cfg.tail_from_pyramid)
         yield bsize, prev, gi, a, valid, over
         prev = bsize
 
@@ -322,72 +257,26 @@ def extraction_step_grouped(images, cfg: HesaffConfig,
         pieces.append((pk, pok, gi, a))
         overflow = overflow + over
     with span("assemble"):
-        ws, its = _workspace(flat, cfg)
+        _, ws, its = patch_geometry(flat["s"], cfg)
         above = flat["ok"] & (ws > groups[-1][0])
         if groups[-1][0] > JAX_GROUP_MAX:
             # the table ends at the border limit: a workspace above it
             # fails the border check, no capacity drops it
             above = above & (ws <= min(images.shape[-2:]) + 2)
         overflow = overflow + above.sum()
-    if _mixed(cfg):
+    if direct_possible(cfg):
         with span("direct branch"):
             dcap = max(64, groups[0][1] // 4)
             idx, valid, over = compact_indices(
-                flat["ok"] & (its <= cfg.oversample_cutoff), dcap)
-            gi, a, valid = _gather(flat, idx, valid, ncap, sort=False)
+                flat["ok"] & takes_direct(its, cfg), dcap)
+            gi, a, valid = gather_slots(flat, idx, valid, ncap, sort=False)
             pk, pok = direct_patches(images, gi, a["x"], a["y"], a["s"],
                                      a["a11"], a["a21"], a["a22"], cfg,
                                      valid, valid_hw)
         pieces.append((pk, pok, gi, a))
         overflow = overflow + over
 
-    return _assemble(pieces, overflow, cfg)
-
-
-def _assemble(pieces, overflow, cfg: HesaffConfig) -> DenseFeatures:
-    """DenseFeatures of (patches, ok, img_idx, fields) pieces, slots in
-    piece order, described by one masked SIFT pass."""
-    with span("assemble"):
-        patches = torch.cat([p[0] for p in pieces])
-        pvalid = torch.cat([p[1] for p in pieces])
-        fields = {k: torch.cat([p[3][k] for p in pieces])
-                  for k in (*_FIELDS, "type")}
-        img_idx = torch.cat([p[2] for p in pieces])
-    return DenseFeatures(valid=pvalid, img_idx=img_idx, **fields,
-                         desc=describe_valid(patches, pvalid, cfg),
-                         overflow=overflow)
-
-
-def _phase_b_staged(images, flat, ncap: int, overflow,
-                    cfg: HesaffConfig, buckets: Sequence[tuple]
-                    ) -> DenseFeatures:
-    """Phase B of the bucket step from phase A's flat fields.
-
-    Per bucket, in order (JAX dist.py _bucket_select_stage): the
-    accepted keypoints with ws in (previous bound, bound] compacted into
-    the bucket's capacity in row-major slot order, their patches at full
-    resolution (patches.extract_bucket_batch: K5 on a GPU); then one
-    masked SIFT pass over every slot.  overflow: phase A's count, to
-    which the keypoints over a capacity and those above the last bucket
-    are added.  Stage B of PipelinedExtractor.
-    """
-    ws, _ = _workspace(flat, cfg)
-    pieces = []
-    prev = 0
-    for bsize, bcap in buckets:
-        with span(f"bucket {bsize}"):
-            m = flat["ok"] & (ws > prev) & (ws <= bsize)
-            idx, valid, over = compact_indices(m, bcap)
-            gi, a, valid = _gather(flat, idx, valid, ncap, sort=False)
-            pk, pok = extract_bucket_batch(
-                images, bsize, gi,
-                *(a[k] for k in ("x", "y", "s", "a11", "a12", "a21", "a22")),
-                cfg, active=valid, prev_bucket=prev)
-        pieces.append((pk, pok, gi, a))
-        overflow = overflow + over
-        prev = bsize
-    overflow = overflow + (flat["ok"] & (ws > buckets[-1][0])).sum()
-    return _assemble(pieces, overflow, cfg)
+    return assemble(pieces, overflow, cfg)
 
 
 def extraction_step(images, cfg: HesaffConfig, buckets: Sequence[tuple],
@@ -409,7 +298,7 @@ def extraction_step(images, cfg: HesaffConfig, buckets: Sequence[tuple],
     """
     images = _as_images(images, device)
     flat, _, overflow, ncap = phase_a(images, cfg)
-    return _phase_b_staged(images, flat, ncap, overflow, cfg, buckets)
+    return bucket_phase_b(images, flat, ncap, overflow, cfg, buckets)[0]
 
 
 extraction_step_staged = extraction_step
@@ -540,7 +429,7 @@ class PipelinedExtractor:
 
     Stage A runs phase A (pyramid, detection, affine adaptation) on
     devices[:data_parallel]; stage B runs phase B (bucketed patches and
-    SIFT, _phase_b_staged) on devices[data_parallel:2 * data_parallel].
+    SIFT, batch.bucket_phase_b) on devices[data_parallel:2 * data_parallel].
     With data_parallel > 1 each microbatch is split into that many
     lanes, lane d running on stage A's device d and stage B's device d
     with the bucket capacities divided by data_parallel, and the lanes'
@@ -602,8 +491,8 @@ class PipelinedExtractor:
                     crossing = [t.to(dev_b, non_blocking=True)
                                 for t in crossing]
                 im_b, over_b, *vals = crossing
-                out = _phase_b_staged(im_b, dict(zip(flat, vals)), ncap,
-                                      over_b, self.cfg, self.buckets)
+                out, _ = bucket_phase_b(im_b, dict(zip(flat, vals)), ncap,
+                                        over_b, self.cfg, self.buckets)
             lanes.append((out, sb, len(chunk)))
         return lanes
 

@@ -24,21 +24,27 @@ in shared memory, for larger patches; a patch whose block would need
 more than the card's 232,448 bytes of shared memory raises.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches
-the kernel or raises.
+the kernel or raises.  Either way it is the one blur-branch patch
+arithmetic of the port: patches.extract_bucket_batch and the grouped
+step both come here.
+
+A keypoint's patch geometry is decided here for the whole port:
+patch_geometry gives (S, ws, its) for a batch of scales, and the
+direct-branch rule (min_workspace, direct_possible, takes_direct) says
+which keypoints skip the blur and take patches.direct_patches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from hesaff_tpu_torch.ops import cuda_build
 from hesaff_tpu_torch.ops.linalg import fdiv
-from hesaff_tpu_torch.ops.warp import check_borders
-from hesaff_tpu_torch.patches import (_device_gauss_taps,
-                                      _max_ksize_for_bucket, _warp, true_dims)
+from hesaff_tpu_torch.ops.warp import check_borders, clamped_warp, true_dims
 
 # launches of the CUDA kernel in this process, and of its generic
 # geometry (patches of more than 64 px) alone
@@ -49,6 +55,71 @@ GENERIC_GEOMETRY = 4
 
 # elements of one chunk's (chunk, n, n) workspace in the plain version
 _CHUNK_ELEMS = 1 << 22
+
+
+def patch_geometry(s, cfg, ps: float = 1.0):
+    """(S, ws, its) of keypoints of scales s (K,), the one place that
+    decides a keypoint's patch geometry.
+
+    S = 2 * ceil(s * mr_size) + 1 (int32), the patch image side; ws
+    (int32), the workspace side in source pixels: S + 2 at full
+    resolution, 2 * ceil(S / (2 ps)) + 3 from a level whose pixels are
+    ps original pixels; its = S / P (float32, one division by a 0-d
+    tensor), the subsample step in original pixels.
+    """
+    S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
+    its = fdiv(S.float(), cfg.patch_size)
+    if ps == 1.0:
+        return S, S + 2, its
+    return S, 2 * torch.ceil(S.float() / (2.0 * ps)).to(torch.int32) + 3, its
+
+
+def min_workspace(cfg) -> int:
+    """Lower bound on any keypoint's workspace side ws = S + 2."""
+    pd_min = 0.5 if cfg.upscale_input else 1.0
+    s_min = (cfg.initial_sigma * cfg.sigma_step
+             * 2.0 ** (-cfg.final_shift_limit / cfg.num_scales) * pd_min)
+    return 2 * int(math.ceil(s_min * cfg.mr_size)) + 3
+
+
+def direct_possible(cfg, above: int = 0) -> bool:
+    """Whether a keypoint whose workspace side is above `above` can take
+    the direct warp (imageToPatchScale <= oversample_cutoff, i.e. ws <=
+    oversample_cutoff * P + 2).  Under the default configuration none
+    can: its smallest workspace is above that."""
+    return (max(above + 1, min_workspace(cfg))
+            <= cfg.oversample_cutoff * cfg.patch_size + 2)
+
+
+def takes_direct(its, cfg):
+    """Per keypoint, from patch_geometry's its: the direct warp, with no
+    anti-alias blur, in place of the blur branch."""
+    return its <= cfg.oversample_cutoff
+
+
+def _max_ksize_for_bucket(bucket: int, patch_size: int,
+                          smooth_factor: float) -> int:
+    """Upper bound on the OpenCV blur kernel width in this bucket."""
+    its_max = (bucket - 2) / patch_size
+    size = int(2.0 * 3.0 * smooth_factor * its_max + 1.0)
+    if size % 2 == 0:
+        size += 1
+    return size
+
+
+def _device_gauss_taps(sigma, ksize, kmax: int):
+    """Per-keypoint sampled Gaussian taps masked to ksize, normalised.
+
+    sigma, ksize: (K,) tensors; kmax: static odd width.  Returns (K, kmax).
+    """
+    rmax = kmax // 2
+    off = torch.arange(-rmax, rmax + 1, dtype=torch.float32,
+                       device=sigma.device)
+    r_true = (ksize // 2).float()[:, None]
+    sg = sigma[:, None]
+    w = torch.exp(-(off * off) / (2.0 * sg * sg))
+    w = torch.where(off.abs() <= r_true, w, 0.0)
+    return w / w.sum(dim=1, keepdim=True)
 
 
 def fold_operator(ws, its, taps, n: int, patch_size: int):
@@ -111,7 +182,7 @@ def patches_group_plain(src, img_idx, x, y, a11, a21, a22, ws, its, taps,
     for start in range(0, sel.numel(), chunk):
         ii = sel[start:start + chunk]
         wsi = ws[ii].int()
-        WS, touched = _warp(src, img_idx[ii], n, x[ii], y[ii], a11[ii],
+        WS, touched = clamped_warp(src, img_idx[ii], n, x[ii], y[ii], a11[ii],
                             a21[ii], a22[ii], wsi)
         R = fold_operator(wsi, its[ii], taps[ii], n, P)
         T = torch.bmm(WS, R.transpose(1, 2))
@@ -198,10 +269,10 @@ def group_args(images, bucket: int, img_idx, x, y, s, a11, a21, a22, cfg,
     tail, the first level of the octave whose pixels are ps original
     pixels; bucket: the workspace bound in source pixels, which sets
     KMAX; the per-keypoint (K,) tensors are in original pixels, in the
-    rectified frame.  At full resolution ws = S + 2, its = S / P and the
-    anti-alias sigma is f * its.  From a downsampled level the warp
-    runs in source pixels (x/ps, y/ps, step its/ps over a workspace
-    2*ceil(S/(2 ps))+3) and the sigma drops the blur the level already
+    rectified frame.  ws and its come from patch_geometry.  At full
+    resolution the anti-alias sigma is f * its.  From a downsampled
+    level the warp runs in source pixels (x/ps, y/ps, step its/ps over
+    the source workspace) and the sigma drops the blur the level already
     carries: sqrt(max((f its/ps)^2 - sigma0^2, 1e-4)).  The boundary
     pre-check stays in original coordinates and dims (orig_hw, default
     the source's), or, for edge-padded images, each keypoint's image's
@@ -210,16 +281,14 @@ def group_args(images, bucket: int, img_idx, x, y, s, a11, a21, a22, cfg,
     """
     P = cfg.patch_size
     kmax = _max_ksize_for_bucket(bucket, P, cfg.patch_smooth_factor)
-    S = 2 * torch.ceil(s * cfg.mr_size).to(torch.int32) + 1
-    its = fdiv(S.float(), P)
+    _, ws, its = patch_geometry(s, cfg, ps)
     H, W = orig_hw if orig_hw is not None else images.shape[-2:]
     corner_bad = check_borders(*true_dims(valid_hw, img_idx, H, W), P, P, x,
                                y, a11 * its, 0.0, a21 * its, a22 * its)
     if ps == 1.0:
-        ws, sigma = S + 2, cfg.patch_smooth_factor * its
+        sigma = cfg.patch_smooth_factor * its
     else:
         its = its / ps
-        ws = 2 * torch.ceil(S.float() / (2.0 * ps)).to(torch.int32) + 3
         sigma0 = cfg.initial_sigma
         sigma = torch.sqrt(torch.clamp_min(
             (cfg.patch_smooth_factor * its) ** 2 - sigma0 * sigma0, 1e-4))
@@ -237,9 +306,9 @@ def extract_group(images, bucket: int, img_idx, x, y, s, a11, a21, a22,
 
     images: (B, H, W); per keypoint (K,) tensors; the frame is rectified
     (a12 == 0); valid_hw: None or (B, 2) true sizes of edge-padded
-    images.  Mirrors patches.extract_bucket_batch for the blur branch
-    (direct-branch keypoints go elsewhere).  Returns (patches (K, P, P),
-    ok (K,)).
+    images.  The blur branch of patches.extract_bucket_batch
+    (direct-branch keypoints go to patches.direct_patches).  Returns
+    (patches (K, P, P), ok (K,)).
     """
     args, corner_bad = group_args(images, bucket, img_idx, x, y, s, a11,
                                   a21, a22, cfg, active, valid_hw=valid_hw)

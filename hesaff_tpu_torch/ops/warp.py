@@ -8,7 +8,9 @@ one-hot matmuls because gathers are slow on a TPU; on the GPU a direct
 
 The x blend comes first, as in the JAX twin's quantize_x form.  A
 sample whose floor lies outside [0, W-2] x [0, H-2] reads 0 and raises
-the "touched" flag.
+the "touched" flag.  The patch stage's clamped workspace warp
+(clamped_warp) and the dims of its corner pre-check (true_dims) live
+here too.
 """
 
 from __future__ import annotations
@@ -107,3 +109,45 @@ def check_borders(h, w, out_h: int, out_w: int,
     bad = ((torch.floor(imx) <= 0) | (torch.floor(imy) <= 0)
            | (torch.ceil(imx) >= ex(width)) | (torch.ceil(imy) >= ex(height)))
     return bad.flatten(-2).any(dim=-1)
+
+
+def true_dims(valid_hw, img_idx, H: int, W: int):
+    """(h, w) of the corner pre-check: the padded H, W, or each
+    keypoint's image's true size from valid_hw (B, 2)."""
+    if valid_hw is None:
+        return H, W
+    vhw = valid_hw.to(img_idx.device)[img_idx.long()]
+    return vhw[:, 0], vhw[:, 1]
+
+
+def clamped_warp(images, img_idx, n: int, x, y, a11, a21, a22, ws):
+    """Clamped-index n x n warp of the rectified (a12 == 0) frame.
+
+    images: (B, H, W); the rest (K,) per keypoint.  Output index q in
+    [0, n) reads grid offset min(q, ws-1) - (ws >> 1), so q >= ws
+    replicates the last true row/column.  Returns (out (K, n, n),
+    touched (K,)) where touched means some sample fell outside the image
+    (it then reads 0).
+    """
+    B, H, W = images.shape
+    q = torch.arange(n, device=x.device)
+    half = (ws >> 1).float()[:, None]
+    eff = torch.minimum(q[None, :], (ws - 1)[:, None]).float() - half
+    wx = x[:, None] + eff * a11[:, None]                     # (K, n) cols
+    wy = ((y[:, None, None] + eff[:, None, :] * a21[:, None, None])
+          + eff[:, :, None] * a22[:, None, None])             # (K, n, n)
+    x0f = torch.floor(wx)
+    fx = (wx - x0f)[:, None, :]
+    y0f = torch.floor(wy)
+    fy = wy - y0f
+    valid = (((x0f >= 0) & (x0f < W - 1))[:, None, :]
+             & (y0f >= 0) & (y0f < H - 1))
+    x0 = x0f.clamp(0, W - 2).long()[:, None, :]
+    y0 = y0f.clamp(0, H - 2).long()
+    flat = images.reshape(-1)
+    base = img_idx.long()[:, None, None] * (H * W) + y0 * W + x0
+    xa = (1.0 - fx) * flat[base] + fx * flat[base + 1]
+    xb = (1.0 - fx) * flat[base + W] + fx * flat[base + W + 1]
+    val = (1.0 - fy) * xa + fy * xb
+    out = torch.where(valid, val, 0.0)
+    return out, (~valid).flatten(1).any(dim=1)

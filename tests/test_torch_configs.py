@@ -5,7 +5,7 @@ held to its JAX XLA twin at the tolerances the default configuration's
 parity tests use: SIFT (K6) within one step and > 99% exact on patches
 of 65, 96 and 97 px and at 3 x 3 x 8, 4 x 4 x 6 and 4 x 4 x 1 bins
 (test_torch_patches_sift.py); the group patch pipeline (K5) and the
-card's bucket routing (K5 beside the direct warp in a mixed bucket)
+bucket path (K5 beside the direct warp in a mixed bucket)
 with equal ok flags and patches at atol 1e-3 at 65 and 97 px, and
 at 96 and 128 px against JAX's Pallas group kernel in interpret mode
 (test_torch_group_patches.py); blur + DoH (K1) at 37 and 63 taps and
@@ -119,11 +119,10 @@ _KP = ("img_idx", "x", "y", "s", "a11", "a12", "a21", "a22")
                                       (97, 193)])
 def test_patch_paths_match_jax(P, bucket):
     """At P = 65 bucket 33 mixes direct-warp keypoints into the blur
-    branch, and at 97 bucket 41 does.  The port's bucket path, its
-    routing on the card (the group pipeline of K5 for the blur branch,
-    the direct warp for the rest, run here on CPU tensors) and the
-    group pipeline alone on the blur-branch keypoints, against JAX's
-    bucket path."""
+    branch, and at 97 bucket 41 does.  The port's bucket path (the group
+    pipeline of K5 for the blur branch, the direct warp for the rest,
+    run here on CPU tensors) and the group pipeline alone on the
+    blur-branch keypoints, against JAX's bucket path."""
     cfg = cfg_of(patch_size=P)
     pcfg = port_cfg(cfg)
     images, kp, active, prev = _bucket_case(
@@ -133,21 +132,15 @@ def test_patch_paths_match_jax(P, bucket):
         cfg, active=jnp.asarray(active), prev_bucket=prev))
     ref_ok = ref_ok & active
     assert ref_ok.sum() >= 8 and not ref_ok[:2].any()
-    S = patches.patch_image_size(kp["s"], CFG.mr_size)
-    direct = S / P <= CFG.oversample_cutoff
+    _, _, its = cuda_patches.patch_geometry(t(kp["s"]), pcfg)
+    direct = n(cuda_patches.takes_direct(its, pcfg))
     use_blur = (bucket - 2) / P > CFG.oversample_cutoff
-    mixed = (max(prev + 1, patches._min_workspace(pcfg))
-             <= CFG.oversample_cutoff * P + 2)
+    mixed = cuda_patches.direct_possible(pcfg, prev)
     assert use_blur and mixed == (bucket == {65: 33, 97: 41}[P])
     assert direct.any() == mixed
     args = [t(kp[k]) for k in _KP]
     pk, ok = patches.extract_bucket_batch(
         t(images), bucket, *args, pcfg, active=t(active), prev_bucket=prev)
-    np.testing.assert_array_equal(n(ok), ref_ok)
-    np.testing.assert_allclose(n(pk)[ref_ok], ref_pk[ref_ok], atol=1e-3)
-    pk, ok = patches._bucket_on_card(
-        t(images), bucket, *args[:5], *args[6:], pcfg, t(active), use_blur,
-        mixed)
     np.testing.assert_array_equal(n(ok), ref_ok)
     np.testing.assert_allclose(n(pk)[ref_ok], ref_pk[ref_ok], atol=1e-3)
     blur_act = active & ~direct
@@ -274,7 +267,7 @@ def extract_65(golden_small):
     golden: JAX's extract_batch and the port's extract."""
     cfg = cfg_of(patch_size=65)
     pcfg = port_cfg(cfg)
-    assert dist._mixed(pcfg)
+    assert cuda_patches.direct_possible(pcfg)
     gray = golden_small["gray"]
     ref = jbatch.extract_batch(jnp.asarray(gray[None]), cfg)[0]
     got = extract(gray, pcfg, device="cpu", return_stats=True)

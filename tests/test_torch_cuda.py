@@ -1368,7 +1368,7 @@ def test_default_shapes_keep_their_instances(dev):
     """The default configuration launches the instances it launched
     before this slice: K6 "warp64", K5 geometries 0-3, K1 the unrolled
     ones, K4 "g19"; no generic instance runs."""
-    from hesaff_tpu_torch import dist, extract, patches
+    from hesaff_tpu_torch import dist, extract
     from hesaff_tpu_torch.ops import (cuda_affine, cuda_blur, cuda_patches,
                                       cuda_sift)
 
@@ -1377,11 +1377,11 @@ def test_default_shapes_keep_their_instances(dev):
     assert {cuda_blur.instance(k) for k in (1, 9, 11, 13, 15)} == {
         "unrolled"}
     for bsize in (49, 97, 193, 385):
-        kmax = patches._max_ksize_for_bucket(bsize, 41, 1.5)
+        kmax = cuda_patches._max_ksize_for_bucket(bsize, 41, 1.5)
         assert 0 <= cuda_patches.geometry(kmax, 41)[0] < 4
     for bsize in (641, 1025):
         bsrc = dist.tail_source_plan(bsize, 1.0)[2]
-        kmax = patches._max_ksize_for_bucket(bsrc, 41, 1.5)
+        kmax = cuda_patches._max_ksize_for_bucket(bsrc, 41, 1.5)
         assert 0 <= cuda_patches.geometry(kmax, 41)[0] < 4
     before = (cuda_sift.GENERIC_LAUNCHES, cuda_patches.GENERIC_LAUNCHES,
               cuda_blur.GENERIC_LAUNCHES, cuda_affine.GENERIC_LAUNCHES)

@@ -33,6 +33,7 @@ from hesaff_tpu import dist as jdist
 from hesaff_tpu.config import HesaffConfig as JaxConfig
 from hesaff_tpu_torch import detect, dist
 from hesaff_tpu_torch.config import HesaffConfig
+from hesaff_tpu_torch.ops import cuda_patches
 from hesaff_tpu_torch.utils import profiling
 
 CFG = HesaffConfig()
@@ -169,7 +170,7 @@ def test_tail_group_2049_equals_plain(monkeypatch):
     for k in dist.DenseFeatures._fields[1:-1]:
         assert torch.equal(getattr(out, k)[out.valid],
                            getattr(jref, k)[jref.valid]), k
-    ws, _ = dist._workspace(flat, CFG)
+    _, ws, _ = cuda_patches.patch_geometry(flat["s"], CFG)
     assert sorted(ws[flat["ok"]].tolist()) == [25, 39, 1027, 1027, 1031,
                                                1033, 2187]
     big = out.valid & (out.s > 50)

@@ -5,7 +5,10 @@ in interpret mode) and against the XLA bucket path
 extract_bucket_batch, on test_pallas.py's inputs plus two keypoints
 whose patches touch the image border; extract_group_scaled against
 extract_group_pallas_scaled (interpret) on test_pallas.py's 480x640
-pyramid-tail inputs.  Tolerances are the JAX tests': ok flags equal,
+pyramid-tail inputs.  The port's extract_bucket_batch (its one route:
+K5's plain version beside the direct warp) and the grouped path's
+full-resolution tail group (tail_from_pyramid off) against JAX's
+extract_bucket_batch.  Tolerances are the JAX tests': ok flags equal,
 patches atol 1e-3.  scaled_first_level against JAX at atol 3e-4.
 """
 
@@ -128,39 +131,78 @@ def test_extract_group_scaled_matches_jax_kernel(tail_images):
     (25, 1.6, 2.9, 3.0)])
 def test_bucket_routing_on_the_card_matches_plain_bucket_path(
         bucket, smin, smax, mr_size):
-    """extract_bucket_batch's GPU routing (blur branch through the fused
+    """extract_bucket_batch's one route (blur branch through the fused
     patch pipeline, direct branch through direct_patches), run here on
-    CPU tensors, against its CPU path."""
+    CPU tensors, against JAX's bucket path."""
     from hesaff_tpu_torch import patches
+    from hesaff_tpu_torch.ops.cuda_patches import (direct_possible,
+                                                   patch_geometry,
+                                                   takes_direct)
 
-    cfg = dataclasses.replace(PCFG, mr_size=mr_size)
+    jcfg = dataclasses.replace(CFG, mr_size=mr_size)
+    cfg = port_cfg(jcfg)
     rng = np.random.default_rng(7)
     B, H, W = 2, 240, 320
-    images = t(smooth_stacks(rng, B, H, W))
+    images = smooth_stacks(rng, B, H, W)
     K = 32
     d = np.exp(rng.normal(0, 0.25, K)).astype(np.float32)
-    kp = [t(a) for a in (
-        rng.integers(0, B, K).astype(np.int32),
-        rng.uniform(20, W - 20, K).astype(np.float32),
-        rng.uniform(20, H - 20, K).astype(np.float32),
-        rng.uniform(smin, smax, K).astype(np.float32), d)]
-    a21 = t(rng.normal(0, 0.3, K).astype(np.float32))
-    a22 = t((1.0 / d).astype(np.float32))
-    active = t(rng.uniform(size=K) > 0.2)
+    kp = (rng.integers(0, B, K).astype(np.int32),
+          rng.uniform(20, W - 20, K).astype(np.float32),
+          rng.uniform(20, H - 20, K).astype(np.float32),
+          rng.uniform(smin, smax, K).astype(np.float32), d,
+          np.zeros(K, np.float32),
+          rng.normal(0, 0.3, K).astype(np.float32),
+          (1.0 / d).astype(np.float32))
+    active = rng.uniform(size=K) > 0.2
     i = patches.BUCKET_SIZES.index(bucket)
     prev = patches.BUCKET_SIZES[i - 1] if i else 0
-    ref = patches.extract_bucket_batch(
-        images, bucket, *kp, t(np.zeros(K, np.float32)), a21, a22, cfg,
-        active=active, prev_bucket=prev)
-    use_blur = (bucket - 2) / cfg.patch_size > cfg.oversample_cutoff
-    mixed = (max(prev + 1, patches._min_workspace(cfg))
-             <= cfg.oversample_cutoff * cfg.patch_size + 2)
-    out = patches._bucket_on_card(images, bucket, *kp, a21, a22, cfg,
-                                  active, use_blur, mixed)
-    S = patches.patch_image_size(n(kp[3]), cfg.mr_size)
-    direct = S / cfg.patch_size <= cfg.oversample_cutoff
-    assert direct.any() == mixed
-    np.testing.assert_array_equal(n(out[1]), n(ref[1]))
-    ok = n(ref[1])
-    assert ok.sum() >= 8 and (not mixed or (ok & direct).any())
-    np.testing.assert_allclose(n(out[0])[ok], n(ref[0])[ok], atol=1e-3)
+    ref_pk, ref_ok = (np.asarray(a) for a in jpat.extract_bucket_batch(
+        jnp.asarray(images), bucket, *(jnp.asarray(a) for a in kp), jcfg,
+        active=jnp.asarray(active), prev_bucket=prev))
+    pk, ok = patches.extract_bucket_batch(
+        t(images), bucket, *(t(a) for a in kp), cfg, active=t(active),
+        prev_bucket=prev)
+    mixed = direct_possible(cfg, prev)
+    direct = n(takes_direct(patch_geometry(t(kp[3]), cfg)[2], cfg))
+    assert direct.any() == mixed == (mr_size == 3.0)
+    ref_ok = ref_ok & active
+    np.testing.assert_array_equal(n(ok), ref_ok)
+    assert ref_ok.sum() >= 8 and (not mixed or (ref_ok & direct).any())
+    np.testing.assert_allclose(n(pk)[ref_ok], ref_pk[ref_ok], atol=1e-3)
+
+
+def test_full_resolution_tail_group_matches_jax_bucket_path(tail_images):
+    """With tail_from_pyramid off, dist.group_patches sends a group above
+    FULL_RES_GROUP_MAX (641) through the full-resolution bucket path:
+    against JAX's extract_bucket_batch on the same keypoints (equal ok,
+    atol 1e-3), two of them too near the border for their patch."""
+    from hesaff_tpu_torch import dist
+
+    rng, images = tail_images
+    B, H, W = images.shape
+    K = 8
+    d = np.exp(rng.normal(0, 0.05, K)).astype(np.float32)
+    kp = dict(
+        img_idx=rng.integers(0, B, K).astype(np.int32),
+        x=rng.uniform(W / 2 - 60, W / 2 + 60, K).astype(np.float32),
+        y=rng.uniform(H / 2 - 10, H / 2 + 10, K).astype(np.float32),
+        s=rng.uniform(36.9, 39.0, K).astype(np.float32),  # ws 389-409
+        a11=d, a12=np.zeros(K, np.float32),
+        a21=rng.normal(0, 0.05, K).astype(np.float32),
+        a22=(1.0 / d).astype(np.float32))
+    kp["x"][:2] = [150.0, W - 150.0]        # patches over the border
+    active = np.ones(K, bool)
+    active[-1] = False
+    jcfg = dataclasses.replace(CFG, tail_from_pyramid=False)
+    cfg = port_cfg(jcfg)
+    names = ("img_idx", "x", "y", "s", "a11", "a12", "a21", "a22")
+    ref_pk, ref_ok = (np.asarray(a) for a in jpat.extract_bucket_batch(
+        jnp.asarray(images), 641, *(jnp.asarray(kp[k]) for k in names),
+        jcfg, active=jnp.asarray(active), prev_bucket=385))
+    a = {k: t(kp[k]) for k in names[1:]}
+    pk, ok = dist.group_patches(t(images), cfg, 641, 385, t(kp["img_idx"]),
+                                a, t(active), [], {})
+    ref_ok = ref_ok & active
+    np.testing.assert_array_equal(n(ok), ref_ok)
+    assert ref_ok.sum() >= 4 and not ref_ok[:2].any()
+    np.testing.assert_allclose(n(pk)[ref_ok], ref_pk[ref_ok], atol=1e-3)

@@ -12,11 +12,13 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from hesaff_tpu import patches as jpat
 from hesaff_tpu import sift as jsift
 from hesaff_tpu.config import HesaffConfig
 from hesaff_tpu_torch import patches, sift
+from hesaff_tpu_torch.ops import cuda_patches
 from _torch_parity import n, port_cfg, smooth_stacks, t
 
 CFG = HesaffConfig()
@@ -45,7 +47,7 @@ def test_extract_bucket_batch_matches_jax(bucket, smin, smax, shear, cfg):
     a22 = (1.0 / a11).astype(np.float32)
     a12 = np.zeros(K, np.float32)
     active = rng.uniform(size=K) > 0.2
-    ws = patches.patch_image_size(s, cfg.mr_size) + 2
+    ws = n(cuda_patches.patch_geometry(t(s), port_cfg(cfg))[1])
     assert ws.max() <= bucket
     args = (img_idx, x, y, s, a11, a12, a21, a22)
     pk_ref, ok_ref = jpat.extract_bucket_batch(
@@ -61,16 +63,28 @@ def test_extract_bucket_batch_matches_jax(bucket, smin, smax, shear, cfg):
 
 
 def test_bucket_helpers_match_jax():
+    """The port's patch geometry (ops/cuda_patches) against JAX's
+    patch_image_size, bucket_for, _min_workspace and _device_gauss_taps;
+    the bucket of a workspace as extract_batch picks it
+    (torch.bucketize over BUCKET_SIZES, past the last: above every
+    bucket)."""
     s = np.linspace(0.5, 300.0, 97).astype(np.float32)
-    np.testing.assert_array_equal(patches.patch_image_size(s, CFG.mr_size),
-                                  jpat.patch_image_size(s, CFG.mr_size))
-    for w in (3, 25, 26, 2049, 2050):
-        assert patches.bucket_for(w) == jpat.bucket_for(w)
-    assert patches._min_workspace(PCFG) == jpat._min_workspace(CFG)
+    S, ws, its = cuda_patches.patch_geometry(t(s), PCFG)
+    ref = np.asarray(jpat.patch_image_size(s, CFG.mr_size))
+    np.testing.assert_array_equal(n(S), ref)
+    np.testing.assert_array_equal(n(ws), ref + 2)
+    np.testing.assert_array_equal(
+        n(its), (ref.astype(np.float32) / np.float32(CFG.patch_size)))
+    w = t(np.int32([3, 25, 26, 2049, 2050]))
+    which = n(torch.bucketize(w, t(np.int32(patches.BUCKET_SIZES))))
+    got = [patches.BUCKET_SIZES[i] if i < len(patches.BUCKET_SIZES) else -1
+           for i in which]
+    assert got == [jpat.bucket_for(int(v)) for v in n(w)]
+    assert cuda_patches.min_workspace(PCFG) == jpat._min_workspace(CFG)
     sig = t(np.float32([0.7, 2.2, 9.1]))
     ks = t(np.int32([5, 15, 55]))
     np.testing.assert_allclose(
-        n(patches._device_gauss_taps(sig, ks, 61)),
+        n(cuda_patches._device_gauss_taps(sig, ks, 61)),
         np.stack([n(jpat._device_gauss_taps(jnp.float32(a), jnp.int32(b),
                                             61))
                   for a, b in zip(n(sig), n(ks))]), rtol=1e-6, atol=1e-7)
