@@ -16,12 +16,15 @@ drives both batch entry points on 16 synthetic 800x640 images (the
 bench imagery of bench.py): extract_batch (phase 4) and the grouped
 serving path dist.extraction_step_grouped with bench.py's group table
 (phase 5), each checked against a CPU run of the plain versions on
-image 0.  Phase 5 also times 7 more batches and profiles one
-(torch.profiler): the device's busy and idle share of the batch, device
+image 0.  Phase 5 also times 7 more batches, which must replay every
+stage of phase A from its CUDA graphs (utils/graphs), and profiles one
+(torch.profiler), whose K1-K4 launch counters must equal the launches
+its trace shows: the device's busy and idle share of the batch, device
 ms by kernel and of torch.cat's kernels, and the host ms of each
-stage's span in dist.py.  Phase 6 runs extract_batch on two 4032x3024
-images, the full frame of a 12 MP camera, whose octave 0 (2^23 px or
-more) takes the sparse detection path through K3, and gates image 0
+stage's span in dist.py.  Phases 4-6 print the phase A stages each
+call captured, replayed and ran eager.  Phase 6 runs extract_batch on
+two 4032x3024 images, the full frame of a 12 MP camera, whose octave 0
+(2^23 px or more) takes the sparse detection path through K3, and gates image 0
 against a CPU run.  Phase 7 runs the path after the descriptors on
 the card: extract() of bench image 0 cropped by 64 px multiples,
 match_descriptors against phase 5's image 0 (knn2 bit-equal to a CPU
@@ -305,6 +308,15 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def segments_since(before=None) -> dict:
+    """Phase A's stages captured, replayed and run eager
+    (utils/graphs.segment_counts) since `before` (since the start)."""
+    from hesaff_tpu_torch.utils import graphs
+
+    now = graphs.segment_counts()
+    return {k: v - (before or {}).get(k, 0) for k, v in now.items()}
 
 
 def dense_octaves(H: int, W: int, cfg) -> int:
@@ -991,14 +1003,18 @@ def phase_batch(images_np, cfg, dev) -> dict:
     from hesaff_tpu_torch import extract_batch
 
     images = torch.as_tensor(images_np, device=dev)
+    s0 = segments_since()
     extract_batch(images, cfg)                        # warm-up
     torch.cuda.synchronize()
     reset_counts()
+    s1 = segments_since()
     t0 = time.perf_counter()
     feats, stats = extract_batch(images, cfg, return_stats=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    log(f"  phase A stages (captured / replayed / eager): warm-up "
+        f"{segments_since(s0)}, then a call {segments_since(s1)}")
     n_desc = sum(f.n for f in feats)
     finite = all(np.isfinite(np.stack([f.x, f.y, f.s, f.a11, f.a12, f.a21,
                                        f.a22, f.response])).all()
@@ -1039,18 +1055,23 @@ def phase_grouped(images_np, cfg, dev):
     import torch
 
     from hesaff_tpu_torch import dist
+    from hesaff_tpu_torch.pyramid import octave_shapes
 
     groups = dist.default_group_spec(HEIGHT, WIDTH, cfg, per_image_cap=1024,
                                      batch=BATCH)
     images = torch.as_tensor(images_np, device=dev)
+    s0 = segments_since()
     dist.extraction_step_grouped(images, cfg, groups)     # warm-up
     torch.cuda.synchronize()
     reset_counts()
+    s1 = segments_since()
     t0 = time.perf_counter()
     out = dist.extraction_step_grouped(images, cfg, groups)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
+    log(f"  phase A stages (captured / replayed / eager): warm-up "
+        f"{segments_since(s0)}, then a call {segments_since(s1)}")
     n_valid = int(out.valid.sum())
     overflow = int(out.overflow)
     v = out.valid
@@ -1068,14 +1089,21 @@ def phase_grouped(images_np, cfg, dev):
         f"{n_valid / wall:.0f} desc/s; launches {launches}")
 
     walls = []
+    s2 = segments_since()
     for _ in range(7):
         t0 = time.perf_counter()
         dist.extraction_step_grouped(images, cfg, groups)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     med = float(np.median(walls))
+    seg7 = segments_since(s2)
     log(f"  7 more batches: wall ms {[round(w, 3) for w in walls]}, median "
-        f"{med:.3f} -> {n_valid / med * 1e3:.0f} desc/s")
+        f"{med:.3f} -> {n_valid / med * 1e3:.0f} desc/s; phase A stages "
+        f"{seg7}")
+    stages = 3 * len(octave_shapes(HEIGHT, WIDTH, cfg))
+    check(seg7 == {"captured": 0, "replayed": 7 * stages, "eager": 0},
+          f"grouped: 7 calls of one shape ran phase A's stages {seg7}, "
+          f"not {stages} replayed a call")
     profile_grouped(images, cfg, groups)
 
     t0 = time.perf_counter()
@@ -1101,15 +1129,19 @@ def phase_large(large_np, cfg, dev) -> dict:
     images = torch.as_tensor(large_np, device=dev)
     extract_batch(images, cfg)                        # warm-up
     torch.cuda.synchronize()
-    walls, counts = [], []
+    walls, counts, segs = [], [], []
     for _ in range(3):
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
+        s0 = segments_since()
         t0 = time.perf_counter()
         feats, stats = extract_batch(images, cfg, return_stats=True)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         counts.append(read_counts())
+        segs.append(segments_since(s0))
+    log(f"  phase A stages (captured / replayed / eager) of the 3 calls: "
+        f"{segs}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = counts[0]
     check(all(c == launches for c in counts),
@@ -2722,17 +2754,35 @@ def profile_grouped(images, cfg, groups) -> None:
     from hesaff_tpu_torch import dist
 
     torch.cuda.synchronize()
+    s0, l0 = segments_since(), read_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         dist.extraction_step_grouped(images, cfg, groups)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    seg = segments_since(s0)
+    launched = {k: v - l0[k] for k, v in read_counts().items()}
+    log(f"  profiled batch's phase A stages: {seg}")
     events = prof.events()
     span = lambda e: (getattr(e, "is_user_annotation", False)
                       or e.name.startswith(_SPANS))
     work = [e for e in events
             if e.device_type == DeviceType.CUDA and not span(e)]
+    # a replayed stage adds to the launch counters what its capture
+    # counted: hold them against the kernels of phase A this run traced
+    graphed = {"blur_doh": ("blur_doh_kernel",),
+               "detect_walk": ("detect_walk_kernel",),
+               "detect_maps": ("detect_maps_kernel",),
+               "affine_adapt": K4_KERNELS}
+    traced = {k: sum(any(s in e.name for s in syms) for e in work)
+              for k, syms in graphed.items()}
+    counted = {k: launched[k] for k in graphed}
+    log(f"  profiled batch's launches of phase A's kernels: counted "
+        f"{counted}, traced {traced}")
+    check(seg["replayed"] > 0 and counted == traced,
+          f"grouped: a replayed call counted {counted} launches of phase "
+          f"A's kernels, its trace shows {traced} (stages {seg})")
     busy, end = 0.0, None
     for a, b in sorted((e.time_range.start, e.time_range.end)
                        for e in work):
@@ -2846,6 +2896,8 @@ def main() -> int:
     rec13 = run("13", phase_knn2, dev, card)
     log("  phase walls (s): "
         + json.dumps({k: round(v, 1) for k, v in walls.items()}))
+    log(f"  phase A stages over every phase (captured / replayed / eager): "
+        f"{segments_since()}")
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed")
         return 1

@@ -13,7 +13,9 @@ detection walk (dense, or sparse for octaves of 2^23 px or more), and
 the affine adaptation of the cross-image flattened
 keypoints; then the rectified frames.  Each octave's three stages run
 in profiler spans "A: ladder", "A: detect" and "A: affine"
-(utils/profiling.span).
+(utils/profiling.span); on the card each is a CUDA graph, captured at
+a shape's second call and replayed after it (PHASE_A, utils/graphs),
+but for a sparse octave's detection.
 
 The bucket phase B (bucket_phase_b), shared by extract_batch and the
 bucket step of dist.py: per BUCKET_SIZES bucket of a table, the
@@ -28,6 +30,7 @@ and gives them as the capacities, so no capacity drops a keypoint.
 
 from __future__ import annotations
 
+import functools
 import math
 from collections import defaultdict
 from typing import NamedTuple, Sequence
@@ -35,9 +38,11 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from hesaff_tpu_torch import detect, params
 from hesaff_tpu_torch.affine_shape import adapt_flat
 from hesaff_tpu_torch.config import DEFAULT_CONFIG, HesaffConfig
-from hesaff_tpu_torch.detect import detect_octave_batch, detect_octave_sparse
+from hesaff_tpu_torch.detect import detect_octave_sparse
+from hesaff_tpu_torch.ops import cuda_affine, cuda_blur, cuda_detect
 from hesaff_tpu_torch.ops.batching import compact_indices
 from hesaff_tpu_torch.ops.cuda_patches import patch_geometry
 from hesaff_tpu_torch.ops.cuda_sift import describe_masked
@@ -45,7 +50,8 @@ from hesaff_tpu_torch.ops.linalg import rectify_up_is_up
 from hesaff_tpu_torch.patches import BUCKET_SIZES, extract_bucket_batch
 from hesaff_tpu_torch.pipeline import ExtractStats, Features, resolve_device
 from hesaff_tpu_torch.pyramid import (build_octave, level_sigmas,
-                                      prepare_first_level)
+                                      octave_shapes, prepare_first_level)
+from hesaff_tpu_torch.utils import graphs
 from hesaff_tpu_torch.utils.profiling import span
 
 
@@ -92,21 +98,44 @@ def as_valid_hw(valid_hw, device):
                            device=device).reshape(-1, 2).contiguous()
 
 
-def _ladder(images: torch.Tensor, cfg: HesaffConfig):
-    """(octave, pixel distance) of each octave of the ladder down to
-    min_octave_size, each built inside an "A: ladder" span (octave 0's
-    with the initial blur)."""
-    fits = lambda t: min(t.shape[-2:]) > cfg.min_octave_size
-    with span("A: ladder"):
-        cur, pd = prepare_first_level(images, cfg)
-        o = build_octave(cur, pd, cfg) if fits(cur) else None
-    while o is not None:
-        yield o, pd
-        cur, pd = o.next_first, pd * 2.0
-        if not fits(cur):
-            return
-        with span("A: ladder"):
-            o = build_octave(cur, pd, cfg)
+# phase A's CUDA graphs by key; a replay adds to these launch counters
+# what the kernels of its capture added
+PHASE_A = graphs.Graphs(launches=(
+    (cuda_blur, "LAUNCHES"), (cuda_blur, "GENERIC_LAUNCHES"),
+    (cuda_detect, "LAUNCHES"), (cuda_detect, "MAPS_LAUNCHES"),
+    (cuda_affine, "LAUNCHES"), (cuda_affine, "GENERIC_LAUNCHES")))
+
+
+def _ladder_stage(cur: torch.Tensor, pd: float, cfg: HesaffConfig,
+                  first: bool):
+    """One octave's ladder from its first level (octave 0's from the
+    images, through the initial blur)."""
+    if first:
+        cur, _ = prepare_first_level(cur, cfg)
+    o = build_octave(cur, pd, cfg)
+    return {"blurs": o.blurs, "resps": o.resps, "next_first": o.next_first}
+
+
+def _detect_stage(resps, blurs, vhw, sig, pd: float, cfg: HesaffConfig,
+                  octave: int):
+    """One octave's detection (detect.detect_octave_batch)."""
+    return detect.detect_octave_batch(resps, blurs, sig, pd, cfg, octave, vhw)
+
+
+def _affine_stage(blurs, comp: dict, pd: float, cfg: HesaffConfig):
+    """One octave's adaptation and rectified frames: its fields of
+    detect_affine_batch, (B, acap) each ((B, 1) overflow and n_cand)."""
+    ar = adapt_flat(*octave_affine_inputs(comp, blurs, pd, cfg))
+    r11, r12, r21, r22 = rectify_up_is_up(ar.u11, ar.u12, ar.u21, ar.u22)
+    shp = comp["ok"].shape
+    out = {"ok": comp["ok"] & ar.ok.reshape(shp), "det_ok": comp["ok"]}
+    for k in ("x", "y", "s", "response", "type"):
+        out[k] = comp[k]
+    for k, v in (("a11", r11), ("a12", r12), ("a21", r21), ("a22", r22)):
+        out[k] = v.reshape(shp)
+    out["overflow"] = comp["overflow"][:, None]
+    out["n_cand"] = comp["n_cand"][:, None]
+    return out
 
 
 def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig,
@@ -122,48 +151,58 @@ def detect_affine_batch(images: torch.Tensor, cfg: HesaffConfig,
     and n_cand, and next_firsts: the list of the octaves' next first
     levels (next_firsts[o - 1] is octave o's first level, a by-product
     of the ladder that the grouped path's pyramid tail samples).
+
+    Each octave's stages run in the spans "A: ladder" (octave 0's with
+    the initial blur), "A: detect" and "A: affine".  On the card they
+    are CUDA graphs from a shape's second call on (PHASE_A),
+    but for the detection of a sparse octave, which runs eager between
+    two graphs; the fields returned are copies the caller may keep.
     """
-    B = images.shape[0]
+    B, H, W = images.shape
     sig = level_sigmas(cfg)
     vhw = as_valid_hw(valid_hw, images.device)
     if vhw is not None and cfg.upscale_input:
         vhw = vhw * 2
+    shapes = octave_shapes(H, W, cfg)
+    # which octaves' detection runs eager between graphs
+    sparse = tuple(detect.sparse_octave(h, w) for h, w, _ in shapes)
+    key = (tuple(images.shape), images.dtype, cfg, vhw is not None, sparse)
     fields = defaultdict(list)
     next_firsts = []
-    for octave, (o, pd) in enumerate(_ladder(images, cfg)):
-        with span("A: detect"):
-            comp = detect_octave_batch(o.resps, o.blurs, sig, pd, cfg,
-                                       octave=octave, valid_hw=vhw)
-        if vhw is not None:
-            # the pyramid floor-halves the true size too
-            vhw = vhw // 2
-        with span("A: affine"):
-            ar = adapt_flat(*octave_affine_inputs(comp, o.blurs, pd, cfg))
-            r11, r12, r21, r22 = rectify_up_is_up(ar.u11, ar.u12, ar.u21,
-                                                  ar.u22)
-            shp = comp["ok"].shape
-            fields["ok"].append(comp["ok"] & ar.ok.reshape(shp))
-            fields["det_ok"].append(comp["ok"])
-            for k in ("x", "y", "s", "response", "type"):
-                fields[k].append(comp[k])
-            for k, v in (("a11", r11), ("a12", r12), ("a21", r21),
-                         ("a22", r22)):
-                fields[k].append(v.reshape(shp))
-            fields["overflow"].append(comp["overflow"][:, None])
-            fields["n_cand"].append(comp["n_cand"][:, None])
-        next_firsts.append(o.next_first)
-    if not fields:
-        z = lambda dt: torch.zeros((B, 0), dtype=dt, device=images.device)
-        out = {k: z(dt) for k, dt in (
-            ("ok", torch.bool), ("det_ok", torch.bool),
-            ("x", torch.float32), ("y", torch.float32),
-            ("s", torch.float32), ("response", torch.float32),
-            ("type", torch.int32), ("a11", torch.float32),
-            ("a12", torch.float32), ("a21", torch.float32),
-            ("a22", torch.float32), ("overflow", torch.int64),
-            ("n_cand", torch.int64))}
-    else:
-        out = {k: torch.cat(v, dim=1) for k, v in fields.items()}
+    # K4 reads the mask of params.tables (a bounded cache) by address
+    tables = params.tables(cfg, str(images.device))
+    with PHASE_A.call(key, images.device, holds=tables) as run:
+        cur = images
+        for octave, (h, w, pd) in enumerate(shapes):
+            o = run.stage("A: ladder", functools.partial(
+                _ladder_stage, pd=pd, cfg=cfg, first=octave == 0), cur)
+            stage = run.eager if sparse[octave] else run.stage
+            comp = stage("A: detect", functools.partial(
+                _detect_stage, sig=sig, pd=pd, cfg=cfg, octave=octave),
+                o["resps"], o["blurs"], vhw)
+            if vhw is not None:
+                # the pyramid floor-halves the true size too
+                vhw = vhw // 2
+            f = run.stage("A: affine", functools.partial(
+                _affine_stage, pd=pd, cfg=cfg), o["blurs"], comp)
+            for k, v in f.items():
+                fields[k].append(v)
+            next_firsts.append(run.result(o["next_first"]))
+            cur = o["next_first"]
+        if not fields:
+            z = lambda dt: torch.zeros((B, 0), dtype=dt,
+                                       device=images.device)
+            out = {k: z(dt) for k, dt in (
+                ("ok", torch.bool), ("det_ok", torch.bool),
+                ("x", torch.float32), ("y", torch.float32),
+                ("s", torch.float32), ("response", torch.float32),
+                ("type", torch.int32), ("a11", torch.float32),
+                ("a12", torch.float32), ("a21", torch.float32),
+                ("a22", torch.float32), ("overflow", torch.int64),
+                ("n_cand", torch.int64))}
+        else:
+            # new tensors: the graphs' own outputs stay in their pool
+            out = {k: torch.cat(v, dim=1) for k, v in fields.items()}
     out["next_firsts"] = next_firsts
     return out
 

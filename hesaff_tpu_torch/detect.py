@@ -322,9 +322,9 @@ def detect_level(low, cur, high, blur, cur_scale: float, pd: float,
             low, cur, high, cfg, valid_hw)
     with span("sparse: walk"):
         rows, cols, valid, overflow = compact_candidates(mask, capacity)
-        if profiling.tracing():
-            profiling.counter("sparse_candidates", valid.device).add_(
-                valid.sum())
+        count = profiling.counted("sparse_candidates", valid.device)
+        if count is not None:
+            count.add_(valid.sum())
         ok, x, y, s, val, ptype, r_f, c_f = _walk_window(
             maps, nan_flag, edge, blur, rows, cols, cur_scale, pd, cfg)
     return LevelKeypoints(
@@ -380,6 +380,11 @@ def detect_octave_sparse(resps, blurs, sig, pd: float, cfg: HesaffConfig,
     return comp
 
 
+def sparse_octave(H: int, W: int) -> bool:
+    """Whether an H x W octave takes the sparse path."""
+    return H * W >= SPARSE_PATH_PIXELS
+
+
 def detect_octave_batch(resps, blurs, sig, pd: float, cfg: HesaffConfig,
                         octave: int = 0, valid_hw=None):
     """Whole-batch octave detection.
@@ -392,7 +397,7 @@ def detect_octave_batch(resps, blurs, sig, pd: float, cfg: HesaffConfig,
     overflow and n_cand.
     """
     H, W = resps.shape[-2], resps.shape[-1]
-    if H * W >= SPARSE_PATH_PIXELS:
+    if sparse_octave(H, W):
         return detect_octave_sparse(resps, blurs, sig, pd, cfg, octave,
                                     valid_hw)
     return detect_octave_dense(resps, blurs, sig, pd, cfg, octave, valid_hw)

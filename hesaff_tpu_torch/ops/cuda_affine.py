@@ -67,17 +67,19 @@ def adapt(stack, img_idx, src, lx, ly, ratio, active, win: int, cfg):
     img_idx, src: (K,) int; lx, ly, ratio: (K,) float32 octave
     coordinates and s / (initial_sigma * pd); active: (K,) bool.
 
-    Returns an affine_shape.AffineResult of (K,) tensors.  While
-    torch.profiler records, the Baumberg steps run are added to the
-    counter ``k4_steps`` (utils/profiling), on either path.
+    Returns an affine_shape.AffineResult of (K,) tensors.  The
+    Baumberg steps run are added to ``profiling.counted("k4_steps")``
+    where it is not None (the counter while torch.profiler records, a
+    CUDA graph's own tensor while one is captured), on either path.
     """
     if lx.device.type == "cpu":
-        if not profiling.tracing():
+        count = profiling.counted("k4_steps", lx.device)
+        if count is None:
             return adapt_plain(stack, img_idx, src, lx, ly, ratio, active,
                                win, cfg)
         res, steps = adapt_plain(stack, img_idx, src, lx, ly, ratio, active,
                                  win, cfg, return_steps=True)
-        profiling.counter("k4_steps", lx.device).add_(steps.sum())
+        count.add_(steps.sum())
         return res
     if lx.device.type != "cuda":
         raise ValueError(f"adapt: unsupported device {lx.device}")
@@ -109,8 +111,8 @@ def _launch(stack, img_idx, src, lx, ly, ratio, active, win, cfg):
     iters = torch.empty(K, dtype=torch.int32, device=dev)
     # the kernel's slot counter, zeroed by the entry point on the stream
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    steps = (cuda_build.ptr(profiling.counter("k4_steps", dev))
-             if profiling.tracing() else None)
+    count = profiling.counted("k4_steps", dev)
+    steps = None if count is None else cuda_build.ptr(count)
     fn = cuda_build.entry("affine_adapt", "hesaff_affine_adapt", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(cuda_build.ptr(stack), stack.stride(0), stack.stride(1),

@@ -12,7 +12,11 @@
     the program adds into while tracing (``k4_steps``: the Baumberg steps
     K4 ran; ``sparse_candidates``: the candidates the sparse detection
     path walked); `counters()` reads every total (that read
-    synchronises).
+    synchronises).  Code that counts asks `counted(name, device)` for
+    the tensor to add into: the counter while tracing, None otherwise,
+    and while a CUDA graph is captured (`counting_into`) a tensor of the
+    graph's own, which utils/graphs adds into the counter after each
+    replay that runs while tracing.
   * `trace_to(logdir)` records a torch.profiler trace (CPU, and CUDA
     where a GPU is present) and writes it as a Chrome trace JSON file
     into logdir when the block ends, also when it raises.
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 
 import torch
@@ -52,6 +57,37 @@ def counter(name: str, device) -> torch.Tensor:
     if dev not in per:
         per[dev] = torch.zeros(1, dtype=torch.int64, device=dev)
     return per[dev]
+
+
+# the store of counting_into, per thread (a graph captures on one)
+_capturing = threading.local()
+
+
+def counted(name: str, device):
+    """The (1,) int64 tensor to add counter `name` into now, or None
+    where nothing counts: the process's counter while tracing; inside
+    counting_into, the store's tensor (made zero where first asked for),
+    whether tracing or not."""
+    store = getattr(_capturing, "store", None)
+    if store is None:
+        return counter(name, device) if tracing() else None
+    if name not in store:
+        store[name] = torch.zeros(1, dtype=torch.int64, device=device)
+    return store[name]
+
+
+@contextlib.contextmanager
+def counting_into(store: dict):
+    """While the block runs in this thread, counted() hands out the
+    tensors of `store` (name -> (1,) int64), each set to zero first."""
+    for t in store.values():
+        t.zero_()
+    prev = getattr(_capturing, "store", None)
+    _capturing.store = store
+    try:
+        yield store
+    finally:
+        _capturing.store = prev
 
 
 def counters() -> dict[str, int]:
