@@ -167,19 +167,19 @@ def _cmd_fleet(args) -> int:
 
 
 def _cmd_sfm(args) -> int:
-    """Incremental SfM over an ordered frame sequence: extract, pairwise
-    match and RANSAC verify, union-find tracks, incremental registration
-    and Schur BA, then a poses / points npz and a reprojection report."""
+    """Incremental SfM over an ordered frame sequence: sequential
+    matching (sfm.SequentialMatcher: each frame extracted on the grouped
+    path, matched with the `--window` frames before it and RANSAC
+    verified), union-find tracks, incremental registration and Schur
+    BA, then a poses / points npz and a reprojection report."""
     import glob
     import os
 
     import numpy as np
 
     from hesaff_tpu_torch.config import HesaffConfig
-    from hesaff_tpu_torch.match import match_descriptors
-    from hesaff_tpu_torch.pipeline import extract
-    from hesaff_tpu_torch.ransac import ransac_fundamental
-    from hesaff_tpu_torch.sfm import build_tracks, incremental_sfm
+    from hesaff_tpu_torch.sfm import (SequentialMatcher, build_tracks,
+                                      incremental_sfm)
     from hesaff_tpu_torch.sift_io import load_image_gray
 
     paths = list(args.frames)
@@ -192,12 +192,24 @@ def _cmd_sfm(args) -> int:
               f"{len(paths)})", file=sys.stderr)
         return 1
 
-    cfg = HesaffConfig()
-    feats, shape0 = [], None
+    # each frame matched with the `window` frames before it, every pair
+    # verified by F-RANSAC (1,024 hypotheses, Sampson threshold 3 px^2)
+    matcher = SequentialMatcher(HesaffConfig(), window=args.window,
+                                ratio=args.ratio, hypotheses=1024,
+                                sampson_px=3.0 ** 0.5, device=args.device)
+    feats, shape0, matches = [], None, {}
     for p in paths:
         img = load_image_gray(p)
         shape0 = shape0 or img.shape
-        feats.append(extract(img, cfg, device=args.device))
+        got = matcher.push(img)
+        if got.overflow:
+            print(f"warning: {p}: capacity overflow ({got.overflow} "
+                  "keypoints dropped)", file=sys.stderr)
+        feats.append(got.features)
+        for pm in got.pairs:
+            if len(pm.idx_older) >= 16 and pm.inliers.sum() >= 16:
+                matches[(pm.older, pm.newer)] = (pm.idx_older[pm.inliers],
+                                                 pm.idx_newer[pm.inliers])
     H0, W0 = shape0
     focal = args.focal or 1.2 * max(H0, W0)
     K = np.array([[focal, 0.0, W0 / 2.0],
@@ -205,19 +217,6 @@ def _cmd_sfm(args) -> int:
                   [0.0, 0.0, 1.0]])
 
     kps = [np.stack([f.x, f.y], 1) for f in feats]
-    matches = {}
-    for i in range(len(paths)):
-        for j in range(i + 1, min(len(paths), i + 1 + args.window)):
-            i1, i2 = match_descriptors(feats[i].desc, feats[j].desc,
-                                       ratio=args.ratio, device=args.device)
-            if len(i1) < 16:
-                continue
-            res = ransac_fundamental(kps[i][i1], kps[j][i2],
-                                     device=args.device)
-            inl = res.inliers.cpu().numpy()
-            if inl.sum() < 16:
-                continue
-            matches[(i, j)] = (i1[inl], i2[inl])
     if (0, 1) not in matches:
         print("frames 0 and 1 share too few verified matches to seed",
               file=sys.stderr)

@@ -159,9 +159,17 @@ def ring_knn2(query_local, db_local, group, device=None) -> Matches:
     return Matches(idx=bi, dist=bd1, dist2=bd2)
 
 
-def _host(m: Matches):
-    return (m.idx.cpu().numpy(), m.dist.cpu().numpy(),
-            m.dist2.cpu().numpy())
+def ratio_mutual(fwd: Matches, back_idx, ratio: float) -> torch.Tensor:
+    """(N,) bool on fwd's device: the query rows whose nearest database
+    row passes Lowe's ratio test, dist < (ratio*ratio) * dist2 in
+    float32 as the JAX package takes it, and, where back_idx (each
+    database row's nearest query row) is given, maps back to them (the
+    cross-check).  Ties keep the first row, as knn2 keeps it."""
+    keep = fwd.dist < (ratio * ratio) * fwd.dist2
+    if back_idx is not None:
+        rows = torch.arange(len(keep), device=keep.device)
+        keep &= back_idx.long()[fwd.idx.long()] == rows
+    return keep
 
 
 def match_descriptors(desc1, desc2, ratio: float = 0.8,
@@ -170,9 +178,8 @@ def match_descriptors(desc1, desc2, ratio: float = 0.8,
 
     Runs the 2-NN on `device` (default: desc1's device if a tensor,
     else the GPU), in the descriptors' own dtype: uint8 rows on the card
-    take the K7 kernel.  Returns (idx1, idx2) numpy int32 arrays of
-    matched pairs.  The ratio test, dist < (ratio*ratio) * dist2, is
-    taken in float32 on the host as the JAX package takes it.
+    take the K7 kernel.  The tests (ratio_mutual) run there too.
+    Returns (idx1, idx2) numpy int32 arrays of matched pairs.
     """
     dev = resolve_device(desc1, device)
     d1, d2 = (torch.as_tensor(d if isinstance(d, torch.Tensor)
@@ -180,12 +187,8 @@ def match_descriptors(desc1, desc2, ratio: float = 0.8,
               for d in (desc1, desc2))
     if d1.shape[0] == 0 or d2.shape[0] == 0:
         return np.zeros(0, np.int32), np.zeros(0, np.int32)
-    idx, dist, dist2 = _host(knn2(d1, d2))
-    keep = dist < (ratio * ratio) * dist2
-    i1 = np.nonzero(keep)[0]
-    i2 = idx[i1]
-    if cross_check and len(i1):
-        bidx = _host(knn2(d2, d1))[0]
-        mutual = bidx[i2] == i1
-        i1, i2 = i1[mutual], i2[mutual]
-    return i1.astype(np.int32), i2.astype(np.int32)
+    fwd = knn2(d1, d2)
+    back = knn2(d2, d1).idx if cross_check else None
+    i1 = ratio_mutual(fwd, back, ratio).nonzero()[:, 0]
+    pairs = torch.stack([i1, fwd.idx.long()[i1]]).cpu().numpy()
+    return pairs[0].astype(np.int32), pairs[1].astype(np.int32)

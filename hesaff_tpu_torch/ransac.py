@@ -6,7 +6,13 @@ scored at once on the run's device: minimal-set sampling is one
 (num_hypotheses, 2k or k, 9) DLT systems, and verification one
 (num_hypotheses, N) residual matrix reduced along N.  The best
 hypothesis (first index on ties) is polished by two rounds of weighted
-least-squares refit over its inliers (eigh of the 9x9 normal matrix).
+least-squares refit over its inliers (eigh of the 9x9 normal matrix);
+a round's model is kept only where it has at least as many inliers as
+the model it refits (LO-RANSAC's rule, taken on the device).  The JAX
+package keeps every round; the two agree wherever no round loses
+inliers.  Where the inliers barely constrain the model (a few dozen of
+them, near a plane) the normal matrix's two smallest eigenvalues are
+close, and a round can land on a model with a fraction of the inliers.
 
 Sampling cannot reproduce the JAX package's: its draws come from
 ``jax.random.choice`` keys.  Here a ``torch.Generator`` on the run's
@@ -16,6 +22,13 @@ generators give different streams for one seed.  So the port is held
 to the JAX package on outcomes (the inlier set and the model), and the
 refit arithmetic, which is deterministic, on values.  Everything runs
 in float32 with TF32 off, as the JAX package runs.
+
+Each stage runs in a span (utils/profiling): "ransac: draw", "ransac:
+solve" (the batched minimal solves), "ransac: score" (the residuals of
+every hypothesis at every point, their counts and the argmax, read on
+the host in "sync: best") and "ransac: refit" (the two refits and the
+final inliers); while tracing, the counter ``ransac_residuals`` grows
+by hypotheses x points scored.
 """
 
 from __future__ import annotations
@@ -27,6 +40,7 @@ import torch
 
 from hesaff_tpu_torch.match import full_f32
 from hesaff_tpu_torch.pipeline import resolve_device
+from hesaff_tpu_torch.utils.profiling import counted, span
 
 
 class RansacResult(NamedTuple):
@@ -176,19 +190,37 @@ def draw_minimal_sets(n: int, num_hypotheses: int, min_set: int,
 def _ransac(generator, p1, p2, model: str, threshold: float,
             num_hypotheses: int, min_set: int) -> RansacResult:
     solve, resid, refit = _MODELS[model]
-    sel = draw_minimal_sets(p1.shape[0], num_hypotheses, min_set, generator)
+    with span("ransac: draw"):
+        sel = draw_minimal_sets(p1.shape[0], num_hypotheses, min_set,
+                                generator)
     with full_f32():
-        models = solve(p1[sel], p2[sel])
-        counts = (resid(models, p1, p2) < threshold).sum(1)
-        M = models[counts.argmax()]
-        # local-optimization polish: two rounds of inlier least-squares
-        # refit
-        for _ in range(2):
+        with span("ransac: solve"):
+            models = solve(p1[sel], p2[sel])
+        with span("ransac: score"):
+            counts = (resid(models, p1, p2) < threshold).sum(1)
+            # the refits' eigh waits for the scores anyway; waiting here
+            # keeps the scoring's device time inside its span
+            with span("sync: best"):
+                best = int(counts.argmax())
+            M = models[best]
+            scored = counted("ransac_residuals", p1.device)
+            if scored is not None:
+                scored += num_hypotheses * p1.shape[0]
+        with span("ransac: refit"):
+            # local-optimization polish: two rounds of inlier
+            # least-squares refit, each kept where it loses no inlier
             inl = resid(M, p1, p2) < threshold
-            M = refit(p1, p2, inl.to(torch.float32))
-        inl = resid(M, p1, p2) < threshold
+            n = inl.sum()
+            for _ in range(2):
+                M_new = refit(p1, p2, inl.to(torch.float32))
+                inl_new = resid(M_new, p1, p2) < threshold
+                n_new = inl_new.sum()
+                keep = n_new >= n
+                M = torch.where(keep, M_new, M)
+                inl = torch.where(keep, inl_new, inl)
+                n = torch.maximum(n, n_new)
     return RansacResult(model=M, inliers=inl,
-                        num_inliers=inl.sum().to(torch.int32))
+                        num_inliers=n.to(torch.int32))
 
 
 def _f32(a, dev):

@@ -7,6 +7,12 @@ union-find over pairwise descriptor matches (small data); RANSAC,
 triangulation, PnP hypothesis scoring and BA run batched on the run's
 device (the GPU unless device="cpu"), in float32 with TF32 off.
 
+The front end for a stream of frames is ``SequentialMatcher`` (COLMAP's
+sequential matcher): each pushed frame is extracted on the grouped
+serving path, matched against the frames of a window before it on the
+device and every pair verified by F-RANSAC; ``cli sfm`` runs its frames
+through it.
+
 ``pnp_ransac`` draws its minimal sets from a ``torch.Generator`` on the
 run's device (``ransac.draw_minimal_sets``), which cannot reproduce
 ``jax.random.choice``: the port is held to the JAX package on outcomes.
@@ -14,20 +20,24 @@ run's device (``ransac.draw_minimal_sets``), which cannot reproduce
 
 from __future__ import annotations
 
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from hesaff_tpu_torch.config import HesaffConfig
 from hesaff_tpu_torch.geom.ba import BAProblem, ba_solve
 from hesaff_tpu_torch.geom.se3 import so3_exp, so3_log
-from hesaff_tpu_torch.match import full_f32
-from hesaff_tpu_torch.pipeline import resolve_device
+from hesaff_tpu_torch.match import full_f32, knn2, ratio_mutual
+from hesaff_tpu_torch.pipeline import Features, resolve_device
 from hesaff_tpu_torch.ransac import (_f32, _homog, decompose_essential,
                                      draw_minimal_sets,
                                      essential_from_fundamental,
                                      ransac_fundamental)
+from hesaff_tpu_torch.utils.profiling import counted, span
+
+_GEOMETRY = ("x", "y", "s", "a11", "a12", "a21", "a22", "response")
 
 
 class Reconstruction(NamedTuple):
@@ -87,6 +97,182 @@ def build_tracks(keypoints_per_frame, matches_per_pair):
             sorted((f, np.asarray(keypoints_per_frame[f][k], np.float64))
                    for f, k in nodes))
     return tracks
+
+
+class PairMatches(NamedTuple):
+    """One verified pair of a SequentialMatcher: an earlier frame of
+    the window and the frame just pushed."""
+
+    older: int              # frame id of the earlier frame
+    newer: int              # frame id of the pushed frame
+    idx_older: np.ndarray   # (T,) int32 tentative matches: rows of
+    idx_newer: np.ndarray   # (T,) int32   each frame's features
+    inliers: np.ndarray     # (T,) bool, F-RANSAC's verdict
+    model: np.ndarray       # (3, 3) float32 F, x_newer^T F x_older = 0
+    #                         (NaN where the pair has under 8 matches)
+    seed: int               # the pair's RANSAC seed (pair_seed)
+
+
+class FrameMatches(NamedTuple):
+    """What SequentialMatcher.push gives back for one frame."""
+
+    frame: int              # its frame id (the pushes before it)
+    features: Features      # its described keypoints, on the host
+    overflow: int           # keypoints its extraction dropped
+    pairs: tuple            # PairMatches against each earlier frame of
+    #                         the window, the oldest first
+
+
+def pair_seed(seed: int, older: int, newer: int) -> int:
+    """The RANSAC seed of the pair (older, newer) of a run seeded with
+    `seed`: 32 bits of numpy's SeedSequence of the three."""
+    return int(np.random.SeedSequence(
+        [seed % 2**64, older, newer]).generate_state(1)[0])
+
+
+def frame_groups(height: int, width: int, cfg: HesaffConfig):
+    """The group table a lone frame of this size is extracted with:
+    default_group_spec at one slot every 128 px and at least 4,096
+    (190,512 at 6048 x 4032, where the ETH3D benchmark configurations
+    measured 163,840 and 188,416).  Keypoints in the groups to 641, the
+    most of 3 frames of the benchmark's synthetic imagery against the
+    slots: 800 x 640 1,125 / 509 / 134 / 24 / 1 of 5,184 / 2,464 / 640 /
+    192 / 32; 1024 x 768 1,740 / 828 / 195 / 35 / 4 of 7,744 / 3,712 /
+    928 / 288 / 64; the 200 x 160 golden frame 45 / 9 / 1 of 5,184 /
+    2,464 / 640; none overflowed.  What a frame drops is its
+    FrameMatches.overflow."""
+    from hesaff_tpu_torch.dist import default_group_spec
+
+    return default_group_spec(height, width, cfg,
+                              max(4096, -(-height * width // 128)), 1)
+
+
+class _Entry(NamedTuple):
+    frame: int
+    desc: torch.Tensor      # (N, D) uint8 on the device, contiguous
+    xy: torch.Tensor        # (N, 2) float32 on the device
+
+
+class SequentialMatcher:
+    """Sequential matching of a stream of frames (COLMAP's
+    sequential_matcher): each pushed frame is extracted, matched
+    against the frames of a window before it and each pair verified by
+    F-RANSAC.
+
+    push(frame) extracts one (H, W) host frame (or tensor) through
+    dist.extraction_step_grouped as a batch of one, with `groups` (or,
+    where None, frame_groups of the frame's size), and keeps its
+    descriptors and positions on the device in a ring of the last
+    `window` frames.  Against each frame of the ring, oldest first, it
+    takes the 2-NN both ways (match.knn2: the K7 kernel for uint8 rows
+    on the card), keeps a match where dist < ratio^2 * dist2 in float32
+    and the newer frame's nearest row maps back to it (match.ratio_mutual,
+    match_descriptors' tests, on the device: ties keep the first row),
+    and verifies the pair's tentative matches with
+    ransac_fundamental at the Sampson threshold sampson_px^2, seeded
+    with pair_seed(seed, older, newer).  Returns a FrameMatches of host
+    arrays.
+
+    Spans: "frame: features" (the frame's valid rows, compacted on the
+    device and copied to the host), "pair: knn2" (every 2-NN of the
+    window), "pair: ratio" (the two tests and one copy of every pair's
+    index pairs to the host), ransac's own, "pair: results" (the
+    verdicts and models to the host).  While tracing, the counters
+    pair_queries (query rows x database rows over the 2-NN calls) and
+    pair_tentative (tentative matches) grow.
+    """
+
+    def __init__(self, cfg: HesaffConfig, groups=None, window: int = 10,
+                 ratio: float = 0.8, hypotheses: int = 10000,
+                 sampson_px: float = 4.0, seed: int = 0, device=None):
+        if window < 1:
+            raise ValueError(f"window {window}: at least 1")
+        self.cfg, self.groups, self.window = cfg, groups, window
+        self.ratio, self.hypotheses = ratio, hypotheses
+        self.threshold = sampson_px * sampson_px
+        self.seed, self.device = seed, device
+        self.ring: deque = deque(maxlen=window)
+        self.pushed = 0
+
+    def push(self, frame) -> FrameMatches:
+        from hesaff_tpu_torch import dist
+
+        dev = resolve_device(frame, self.device)
+        h, w = np.shape(frame)[-2:]
+        groups = self.groups or frame_groups(h, w, self.cfg)
+        out = dist.extraction_step_grouped(frame[None], self.cfg, groups,
+                                           device=dev)
+        with span("frame: features"):
+            rows = out.valid.nonzero()[:, 0]
+            geo = torch.stack([getattr(out, k) for k in _GEOMETRY])[:, rows]
+            new = _Entry(self.pushed, out.desc[rows].contiguous(),
+                         geo[:2].t().contiguous())
+            host = geo.cpu().numpy()
+            feats = Features(
+                *host, type=out.type[rows].cpu().numpy(),
+                desc=new.desc.cpu().numpy())
+            overflow = int(out.overflow)
+        pairs = self._pairs(new)
+        self.ring.append(new)
+        self.pushed += 1
+        return FrameMatches(new.frame, feats, overflow, pairs)
+
+    def _pairs(self, new: _Entry) -> tuple:
+        ring = list(self.ring)
+        if not ring:
+            return ()
+        dev = new.desc.device
+        with span("pair: knn2"):
+            nn = [(knn2(e.desc, new.desc), knn2(new.desc, e.desc).idx)
+                  if len(e.desc) and len(new.desc) else None for e in ring]
+            queries = counted("pair_queries", dev)
+            if queries is not None:
+                queries += 2 * len(new.desc) * sum(len(e.desc) for e in ring)
+        with span("pair: ratio"):
+            keep, near = [], []
+            for e, m in zip(ring, nn):
+                if m is None:
+                    keep.append(torch.zeros(len(e.desc), dtype=torch.bool,
+                                            device=dev))
+                    near.append(torch.zeros(len(e.desc), dtype=torch.long,
+                                            device=dev))
+                    continue
+                keep.append(ratio_mutual(m[0], m[1], self.ratio))
+                near.append(m[0].idx.long())
+            flat = torch.cat(keep).nonzero()[:, 0]
+            nearest = torch.cat(near)[flat]
+            host = torch.stack([flat, nearest]).cpu().numpy()
+            tentative = counted("pair_tentative", dev)
+            if tentative is not None:
+                tentative += host.shape[1]
+        starts = np.cumsum([0] + [len(e.desc) for e in ring])
+        cut = np.searchsorted(host[0], starts)
+        seeds = [pair_seed(self.seed, e.frame, new.frame) for e in ring]
+        verdicts = []
+        for k, e in enumerate(ring):
+            lo, hi = int(cut[k]), int(cut[k + 1])
+            if hi - lo >= 8:
+                res = ransac_fundamental(
+                    e.xy[flat[lo:hi] - int(starts[k])], new.xy[nearest[lo:hi]],
+                    threshold=self.threshold,
+                    num_hypotheses=self.hypotheses, seed=seeds[k],
+                    device=dev)
+                verdicts.append((res.inliers, res.model))
+            else:
+                verdicts.append((torch.zeros(hi - lo, dtype=torch.bool,
+                                             device=dev),
+                                 torch.full((3, 3), float("nan"),
+                                            device=dev)))
+        with span("pair: results"):
+            inliers = torch.cat([v[0] for v in verdicts]).cpu().numpy()
+            models = torch.stack([v[1] for v in verdicts]).cpu().numpy()
+        return tuple(
+            PairMatches(e.frame, new.frame,
+                        (host[0, cut[k]:cut[k + 1]] - starts[k]
+                         ).astype(np.int32),
+                        host[1, cut[k]:cut[k + 1]].astype(np.int32),
+                        inliers[cut[k]:cut[k + 1]], models[k], seeds[k])
+            for k, e in enumerate(ring))
 
 
 def triangulate_two_view(R, t, p1n, p2n):

@@ -11,7 +11,10 @@
   * `counter(name, device)`: a (1,) int64 tensor on the device that
     the program adds into while tracing (``k4_steps``: the Baumberg steps
     K4 ran; ``sparse_candidates``: the candidates the sparse detection
-    path walked); `counters()` reads every total (that read
+    path walked; ``pair_queries``, ``pair_tentative``: the query x
+    database rows of the sequential matcher's 2-NN calls and its
+    tentative matches; ``ransac_residuals``: hypotheses x matches that
+    RANSAC scored); `counters()` reads every total (that read
     synchronises).  Code that counts asks `counted(name, device)` for
     the tensor to add into: the counter while tracing, None otherwise,
     and while a CUDA graph is captured (`counting_into`) a tensor of the

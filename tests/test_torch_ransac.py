@@ -66,6 +66,33 @@ def test_fundamental_and_pose_outcomes(seed):
     assert cos > 0.98
 
 
+@pytest.mark.parametrize("model", ["homography", "fundamental"])
+def test_refit_kept_only_where_it_keeps_inliers(monkeypatch, model):
+    """A refit round whose model keeps fewer inliers than the model it
+    refits is dropped: with a refit that returns NaN (no inliers), the
+    result is the best hypothesis and its inliers."""
+    if model == "homography":
+        p1, p2, _, _ = make_homography_data()
+        run, k, thr = ransac.ransac_homography, 4, 9.0
+    else:
+        p1, p2, _, _, _, _ = make_two_view_data()
+        run, k, thr = ransac.ransac_fundamental, 8, 3.0
+    solve, resid, refit = ransac._MODELS[model]
+    monkeypatch.setitem(ransac._MODELS, model, (
+        solve, resid, lambda *a: torch.full((3, 3), float("nan"))))
+    res = run(p1, p2, threshold=thr, num_hypotheses=256, seed=0,
+              device="cpu")
+    g = torch.Generator().manual_seed(0)
+    sel = ransac.draw_minimal_sets(len(p1), 256, k, g)
+    q1, q2 = (torch.as_tensor(p, dtype=torch.float32) for p in (p1, p2))
+    models = solve(q1[sel], q2[sel])
+    counts = (resid(models, q1, q2) < thr).sum(1)
+    best = models[counts.argmax()]
+    torch.testing.assert_close(res.model, best, rtol=0, atol=0)
+    assert int(res.num_inliers) == int(counts.max()) > len(p1) // 2
+    assert torch.equal(res.inliers, resid(best, q1, q2) < thr)
+
+
 def test_essential_and_pose_equal_jax():
     """E from the same F, and the pose from E, against JAX's (the SVD's
     signs are arbitrary: E up to sign, R exactly chosen by cheirality)."""

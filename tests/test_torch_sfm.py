@@ -147,9 +147,9 @@ def test_ate_matches_jax():
 
 
 def test_cli_sfm_smoke(monkeypatch, tmp_path):
-    """`cli sfm` wiring: frames -> pairwise match -> tracks ->
-    incremental SfM -> npz + report, with extraction and image loading
-    stubbed by a rendered synthetic scene."""
+    """`cli sfm` wiring: frames -> sequential matching -> tracks ->
+    incremental SfM -> npz + report, with the grouped extraction step
+    and image loading stubbed by a rendered synthetic scene."""
     rng = np.random.RandomState(3)
     F, P = 4, 150
     K = np.array([[600.0, 0, 320], [0, 600.0, 240], [0, 0, 1]])
@@ -179,14 +179,25 @@ def test_cli_sfm_smoke(monkeypatch, tmp_path):
             a22=np.ones(k, np.float32), response=np.ones(k, np.float32),
             type=np.zeros(k, np.int32), desc=base_desc[idx]))
 
-    import hesaff_tpu_torch.pipeline as pipeline
+    import hesaff_tpu_torch.dist as dist
     import hesaff_tpu_torch.sift_io as sift_io
+
+    def dense(f):
+        """f as the grouped step's DenseFeatures of one image."""
+        k = f.n
+        return dist.DenseFeatures(
+            valid=torch.ones(k, dtype=torch.bool),
+            img_idx=torch.zeros(k, dtype=torch.int32),
+            **{name: torch.as_tensor(getattr(f, name)) for name in (
+                "x", "y", "s", "a11", "a12", "a21", "a22", "response",
+                "type", "desc")},
+            overflow=torch.zeros((), dtype=torch.int64))
 
     it = iter(feats)
     monkeypatch.setattr(sift_io, "load_image_gray",
                         lambda p: np.zeros((480, 640), np.float32))
-    monkeypatch.setattr(pipeline, "extract",
-                        lambda img, cfg, **kw: next(it))
+    monkeypatch.setattr(dist, "extraction_step_grouped",
+                        lambda images, cfg, groups, **kw: dense(next(it)))
 
     from hesaff_tpu_torch.cli import main
 
