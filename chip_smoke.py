@@ -89,7 +89,12 @@ the card).  Phase 13 runs K7 (ops/cuda_knn2, the exact 2-NN of uint8
 rows) at the benchmark query's shape, 2,750 rows against a 16.33 M-row
 uint8 index (2.1 GB): three launches a call, bit-equal to the float32
 blocked path, timed against that path and against the int8 tensor
-cores' bound.  Exits non-zero on any failed phase; on
+cores' bound.  Phase 14 runs K8 (ops/cuda_ransac, F-RANSAC's scoring)
+at an adjacent 24 MP pair's shape, 10,000 hypotheses at 51,000
+matches: one launch a call, counts equal to the plain version's, timed
+against it, against the (H, N, 3) products it replaced and against its
+float32 bound (phase 9's incremental_sfm launches it too, and prints
+its launches).  Exits non-zero on any failed phase; on
 success the last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -111,8 +116,10 @@ int8 tensor cores' 1,979 TOP/s).  No single PyTorch call computes any
 of the six functions (nor K7's), so library_ms is null.  The record
 also holds the four generic instances of phase 11 (K6 and K5 past 64
 px, K1 past 31 taps, K4 past a 31-sample grid) with their launches on
-phase 11's path and their numbers at its shapes (by_shape), and K7
-(knn2_u8, replacing no TPU kernel) with phase 13's numbers.  There is
+phase 11's path and their numbers at its shapes (by_shape), K7
+(knn2_u8, replacing no TPU kernel) with phase 13's numbers and K8
+(ransac_score, replacing none) with its launches in phases 9 and 14
+and phase 14's numbers.  There is
 no CPU mode: without a CUDA device the script exits with an error.
 """
 
@@ -187,6 +194,14 @@ FLEET_BATCH = 8
 # K7_SEED
 K7_QUERY, K7_ROWS, K7_SEED = 2750, 16_334_970, 7
 K7_SOURCE = "hesaff_tpu_torch/csrc/knn2_u8.cu"
+# phase 14 (K8): one adjacent 24 MP pair of the sequential-matching cell,
+# K8_HYPS F hypotheses scored at K8_MATCHES matches of a rendered two-view
+# scene (tests/test_torch_ransac_cuda.py's), 4 px, seed K8_SEED
+K8_HYPS, K8_MATCHES, K8_SEED, K8_THRESHOLD = 10_000, 51_000, 8, 16.0
+K8_SOURCE = "hesaff_tpu_torch/csrc/ransac_score.cu"
+# float32 operations of one Sampson distance, its compare and count
+# (benchmark/metrics/ransac_score_roofline.window10.py counts the same)
+K8_OPS = 35
 
 KERNELS = (
     # name, source, TPU kernel it replaces
@@ -1735,19 +1750,21 @@ def phase_fleet(fleet_rgb, large_np, cfg, dev, card: str) -> dict:
     return launches
 
 
-def phase_geometry(dev, card: str) -> None:
+def phase_geometry(dev, card: str) -> int:
     """Phase 9, geometry on the card, each held against a CPU run:
     incremental_sfm on tests/test_sfm.py's scene (every frame registered,
     ATE < 0.15, rmse < 2e-3, the same frames as the CPU's); ba_solve
     (dense E) on 50 cameras and 5,000 points; the track form past 30,000
     observations (test_geom.py's 50 x 10,000 scene).  Each BA converges
     (rmse from > 1.5 to < 0.5 px, within 0.02 of the CPU's) and one LM
-    step gives the same bits twice.  LM-step ms from CUDA events.  No
-    kernel of the port runs here."""
+    step gives the same bits twice.  LM-step ms from CUDA events.  Of
+    the port's kernels only K8 runs here (incremental_sfm's F-RANSAC on
+    the card); returns its launches."""
     import torch
 
     from hesaff_tpu_torch import sfm
     from hesaff_tpu_torch.geom import ba
+    from hesaff_tpu_torch.ops import cuda_ransac
 
     sys.path.insert(0, TESTS)
     from _torch_scenes import ba_line_scene, sfm_scene
@@ -1756,9 +1773,15 @@ def phase_geometry(dev, card: str) -> None:
     tracks, K, rv_gt, tv_gt = sfm_scene()
     recs = {}
     for d in (dev, "cpu"):
-        t0 = time.perf_counter()
+        t0, k8 = time.perf_counter(), cuda_ransac.LAUNCHES
         rec = sfm.incremental_sfm(tracks, K, ba_every=3, device=d)
         wall = time.perf_counter() - t0
+        k8 = cuda_ransac.LAUNCHES - k8
+        if d == "cpu":
+            check(k8 == 0, f"sfm on the CPU: K8 launched {k8} times")
+        else:
+            k8_launches = k8
+            check(k8 > 0, "sfm on the card: K8 never launched")
         ate = sfm.absolute_trajectory_error(rec.cam_rvec, rec.cam_tvec,
                                             rv_gt, tv_gt)
         recs[str(d)] = (rec, ate, wall)
@@ -1772,8 +1795,9 @@ def phase_geometry(dev, card: str) -> None:
     log(f"phase 9 incremental_sfm, {len(tracks)} tracks over "
         f"{len(rv_gt)} frames on {card}: {len(g.cam_rvec)} registered, "
         f"{len(g.points)} points, ATE {ate_g:.5f} (< 0.15), rmse "
-        f"{g.rmse:.3e} (< 2e-3), {wg:.2f} s; CPU run: {len(c.points)} "
-        f"points, ATE {ate_c:.5f}, rmse {c.rmse:.3e}, {wc:.2f} s")
+        f"{g.rmse:.3e} (< 2e-3), {wg:.2f} s, K8 launches {k8_launches}; "
+        f"CPU run: {len(c.points)} points, ATE {ate_c:.5f}, rmse "
+        f"{c.rmse:.3e}, {wc:.2f} s")
 
     for label, P, solve in (
             ("ba_solve (dense E)", BA_POINTS[0], ba.ba_solve),
@@ -1811,6 +1835,7 @@ def phase_geometry(dev, card: str) -> None:
             f"5 steps after a warm-up), bit-equal on two runs: {same}")
     launches = read_counts()
     check(not any(launches.values()), f"geometry launched {launches}")
+    return k8_launches
 
 
 # phase 10: the pipeline's microbatch and a gloo rank's share of the bench
@@ -2737,6 +2762,71 @@ def phase_knn2(dev, card: str) -> dict:
     return dict(rec, launches=launches)
 
 
+def phase_ransac(dev, card: str) -> dict:
+    """Phase 14: K8 (ops/cuda_ransac, every F hypothesis' inlier count
+    under the Sampson distance) at an adjacent 24 MP pair's shape,
+    K8_HYPS hypotheses (the program's draws and solves, three of them a
+    NaN, a clamped and the zero model) at K8_MATCHES matches.  Checks:
+    one launch a call, counts equal to the plain version's
+    (ransac._f_residuals under the threshold, 1,024 hypotheses at a
+    time).  Times K8 (CUDA events around 20 calls, and its kernel's
+    device time by torch.profiler), the plain version at full size and
+    the (H, N, 3) float32 products that scored F before K8 (3 calls
+    each) against the bound: K8_OPS float32 operations a distance, or
+    the models, matches and counts moved once.  Returns K8's record."""
+    import torch
+
+    from hesaff_tpu_torch import ransac
+    from hesaff_tpu_torch.ops import cuda_ransac
+
+    sys.path.insert(0, TESTS)
+    from test_torch_ransac_cuda import hypotheses, two_view
+
+    p1, p2 = two_view(K8_MATCHES, K8_SEED, dev)
+    models = hypotheses(p1, p2, K8_HYPS, K8_SEED)
+    torch.cuda.synchronize()
+    before = cuda_ransac.LAUNCHES
+    k8 = lambda: cuda_ransac.sampson_counts(models, p1, p2, K8_THRESHOLD)
+    counts = k8()
+    torch.cuda.synchronize()
+    launches = cuda_ransac.LAUNCHES - before
+    check(launches == 1, f"K8: {launches} launches a call, not 1")
+    plain = lambda m: (ransac._f_residuals(m, p1, p2) < K8_THRESHOLD).sum(1)
+    ref = torch.cat([plain(models[i:i + 1024])
+                     for i in range(0, K8_HYPS, 1024)])
+    same = bool(torch.equal(counts.long(), ref))
+    check(same, "K8: counts differ from the plain version's")
+
+    def planes():
+        x1 = torch.cat([p1, p1.new_ones(K8_MATCHES, 1)], 1)
+        x2 = torch.cat([p2, p2.new_ones(K8_MATCHES, 1)], 1)
+        Fx1, Ftx2 = x1 @ models.transpose(-1, -2), x2 @ models
+        num = (x2 * Fx1).sum(-1) ** 2
+        den = (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2
+               + Ftx2[..., 1] ** 2)
+        return (num / den.clamp_min(1e-12) < K8_THRESHOLD).sum(1)
+
+    moved = int((planes() != ref).sum())
+    ms = timed(k8, 20)
+    kernel_ms = device_ms(k8, ("ransac_score_kernel",), 20)
+    plain_ms = timed(lambda: plain(models), 3)
+    planes_ms = timed(planes, 3)
+    torch.cuda.empty_cache()
+    rec = dict(bound(K8_HYPS * 40 + K8_MATCHES * 16,
+                     float(K8_OPS) * K8_HYPS * K8_MATCHES),
+               max_abs_err=0.0 if same else None, ms=ms,
+               kernel_ms=kernel_ms, plain_ms=plain_ms, planes_ms=planes_ms)
+    log(f"phase 14 K8 ransac_score {K8_HYPS} hypotheses x {K8_MATCHES} "
+        f"matches on {card}: {ms:.3f} ms a call (CUDA events, 20 calls; "
+        f"the kernel {kernel_ms:.3f} ms device time), plain version "
+        f"{plain_ms:.1f} ms, (H, N, 3) products {planes_ms:.1f} ms "
+        f"({moved} of {K8_HYPS} counts differ from the plain version's); "
+        f"bound {rec['bound_ms']:.3f} ms ({rec['bound_by']}), "
+        f"{100 * rec['bound_ms'] / kernel_ms:.1f}% of it; {launches} launch "
+        f"a call; counts equal to the plain version's: {same}")
+    return dict(rec, launches=launches)
+
+
 _SPANS = ("phase A", "group ", "direct branch", "SIFT")
 
 
@@ -2885,7 +2975,7 @@ def main() -> int:
     del dense_cpu0
     launches["8"] = run("8", phase_fleet, fleet_rgb, large_np, cfg, dev,
                         card)
-    run("9", phase_geometry, dev, card)
+    k8_launches9 = run("9", phase_geometry, dev, card)
     launches["10"] = run("10", phase_multidevice, images_np, dense, cfg, dev,
                          card)
     del dense
@@ -2894,6 +2984,7 @@ def main() -> int:
     launches["12"] = run("12", phase_collection, corpus_np, images_np, dev,
                          card)
     rec13 = run("13", phase_knn2, dev, card)
+    rec14 = run("14", phase_ransac, dev, card)
     log("  phase walls (s): "
         + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     log(f"  phase A stages over every phase (captured / replayed / eager): "
@@ -2916,6 +3007,9 @@ def main() -> int:
     kernels.append(dict(name="knn2_u8", route="cuda", source=K7_SOURCE,
                         replaces=None, launches_phase13=rec13["launches"],
                         **rec13))
+    kernels.append(dict(name="ransac_score", route="cuda", source=K8_SOURCE,
+                        replaces=None, launches_phase9=k8_launches9,
+                        launches_phase14=rec14["launches"], **rec14))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ that one multiplies with ``torch.bmm``).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -103,6 +104,22 @@ def check(err: int, what: str) -> None:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA `device` (the current device
+    where it has no index), for a kernel's grid."""
+    import torch
+
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
 
 
 def stream(device) -> ctypes.c_void_p:

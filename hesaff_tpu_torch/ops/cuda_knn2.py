@@ -15,7 +15,6 @@ row's strips.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -51,11 +50,6 @@ def plan(nq: int, m: int, n_sm: int) -> tuple[int, int]:
     return strips, min(qt * strips, n_sm)
 
 
-@functools.lru_cache(maxsize=8)
-def _n_sm(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def knn2(q: torch.Tensor, db: torch.Tensor):
     """(idx (Nq,) int32, dist, dist2 (Nq,) float32) of each row of q
     (Nq, 128) in db (M, 128), M >= 2: both uint8, contiguous, 16-byte
@@ -82,8 +76,7 @@ def knn2(q: torch.Tensor, db: torch.Tensor):
     dist2 = torch.empty(nq, dtype=torch.float32, device=dev)
     if nq == 0:
         return idx, dist, dist2
-    n_sm = _n_sm(dev.index if dev.index is not None
-                 else torch.cuda.current_device())
+    n_sm = cuda_build.sm_count(dev)
     strips, ctas = plan(nq, m, n_sm)
     keys = torch.empty(-(-m // DROWS) * DROWS, dtype=torch.int32,
                        device=dev)

@@ -3,16 +3,21 @@
 Port of ``hesaff_tpu/ransac.py``.  All hypotheses are drawn, solved and
 scored at once on the run's device: minimal-set sampling is one
 (num_hypotheses, k) index draw, model estimation one batched SVD of the
-(num_hypotheses, 2k or k, 9) DLT systems, and verification one
-(num_hypotheses, N) residual matrix reduced along N.  The best
-hypothesis (first index on ties) is polished by two rounds of weighted
-least-squares refit over its inliers (eigh of the 9x9 normal matrix);
-a round's model is kept only where it has at least as many inliers as
-the model it refits (LO-RANSAC's rule, taken on the device).  The JAX
-package keeps every round; the two agree wherever no round loses
-inliers.  Where the inliers barely constrain the model (a few dozen of
-them, near a plane) the normal matrix's two smallest eigenvalues are
-close, and a round can land on a model with a fraction of the inliers.
+(num_hypotheses, 2k or k, 9) DLT systems, and verification each
+hypothesis' count of residuals under the threshold.  For F on the card
+that count is one launch of the K8 kernel (ops/cuda_ransac), which
+stores no residual; elsewhere the plain version computes the
+(num_hypotheses, N) residuals, compares and sums them along N.  The two
+counts are equal bit for bit: _f_residuals takes the kernel's float32
+operations in its order.  The best hypothesis (first index on ties) is
+polished by two rounds of weighted least-squares refit over its inliers
+(eigh of the 9x9 normal matrix); a round's model is kept only where it
+has at least as many inliers as the model it refits (LO-RANSAC's rule,
+taken on the device).  The JAX package keeps every round; the two agree
+wherever no round loses inliers.  Where the inliers barely constrain the
+model (a few dozen of them, near a plane) the normal matrix's two
+smallest eigenvalues are close, and a round can land on a model with a
+fraction of the inliers.
 
 Sampling cannot reproduce the JAX package's: its draws come from
 ``jax.random.choice`` keys.  Here a ``torch.Generator`` on the run's
@@ -24,11 +29,11 @@ refit arithmetic, which is deterministic, on values.  Everything runs
 in float32 with TF32 off, as the JAX package runs.
 
 Each stage runs in a span (utils/profiling): "ransac: draw", "ransac:
-solve" (the batched minimal solves), "ransac: score" (the residuals of
-every hypothesis at every point, their counts and the argmax, read on
-the host in "sync: best") and "ransac: refit" (the two refits and the
-final inliers); while tracing, the counter ``ransac_residuals`` grows
-by hypotheses x points scored.
+solve" (the batched minimal solves), "ransac: score" (every
+hypothesis' count and the argmax, read on the host in "sync: best", so
+the span holds the scoring's device time) and "ransac: refit" (the two
+refits and the final inliers); while tracing, the counter
+``ransac_residuals`` grows by hypotheses x points scored.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from hesaff_tpu_torch.match import full_f32
+from hesaff_tpu_torch.ops import cuda_ransac
 from hesaff_tpu_torch.pipeline import resolve_device
 from hesaff_tpu_torch.utils.profiling import counted, span
 
@@ -118,14 +124,21 @@ def _h_residuals(H, p1, p2):
 
 
 def _f_residuals(F, p1, p2):
-    """Sampson distance for the epipolar constraint."""
-    x1, x2 = _homog(p1), _homog(p2)
-    Fx1 = x1 @ F.transpose(-1, -2)
-    Ftx2 = x2 @ F
-    num = (x2 * Fx1).sum(-1) ** 2
-    den = (Fx1[..., 0] ** 2 + Fx1[..., 1] ** 2 + Ftx2[..., 0] ** 2
-           + Ftx2[..., 1] ** 2)
-    return num / den.clamp_min(1e-12)
+    """Sampson distance of each (..., 3, 3) F at every correspondence,
+    (..., N), elementwise in the K8 kernel's order of float32 operations
+    (csrc/ransac_score.cu): a, b, c the rows of F x1, at, bt the first
+    two of F^T x2, (u a + v b + c)^2 over a a + b b + at at + bt bt
+    clamped at 1e-12 (a NaN stays NaN)."""
+    x, y = p1[:, 0], p1[:, 1]
+    u, v = p2[:, 0], p2[:, 1]
+    f = lambda i, j: F[..., i, j, None]
+    a = f(0, 0) * x + f(0, 1) * y + f(0, 2)
+    b = f(1, 0) * x + f(1, 1) * y + f(1, 2)
+    c = f(2, 0) * x + f(2, 1) * y + f(2, 2)
+    at = f(0, 0) * u + f(1, 0) * v + f(2, 0)
+    bt = f(0, 1) * u + f(1, 1) * v + f(2, 1)
+    num = (u * a + v * b + c) ** 2
+    return num / (a * a + b * b + at * at + bt * bt).clamp_min(1e-12)
 
 
 def _normalize_masked(pts, w):
@@ -197,7 +210,11 @@ def _ransac(generator, p1, p2, model: str, threshold: float,
         with span("ransac: solve"):
             models = solve(p1[sel], p2[sel])
         with span("ransac: score"):
-            counts = (resid(models, p1, p2) < threshold).sum(1)
+            if model == "fundamental" and p1.is_cuda:
+                counts = cuda_ransac.sampson_counts(models, p1, p2,
+                                                    threshold)
+            else:
+                counts = (resid(models, p1, p2) < threshold).sum(1)
             # the refits' eigh waits for the scores anyway; waiting here
             # keeps the scoring's device time inside its span
             with span("sync: best"):

@@ -6,7 +6,9 @@ The port draws its minimal sets from a torch.Generator, JAX from its
 PRNG keys, so the two are compared on outcomes: the inlier counts
 within 1% of N.  The refit, which is deterministic, is compared on
 values: with the inlier mask fixed, H / H[2,2] within 1e-4 (rtol and
-atol) of JAX's, both in float32 through the 9x9 normal matrix.
+atol) of JAX's, both in float32 through the 9x9 normal matrix.  The
+plain Sampson distance (the K8 kernel's twin) equals the benchmark's
+plain reference bit for bit.
 """
 
 import jax.numpy as jnp
@@ -14,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.reference import pairs
 from hesaff_tpu import ransac as jransac
 from hesaff_tpu_torch import ransac
+from hesaff_tpu_torch.ops import cuda_ransac
 from tests.test_ransac import make_homography_data, make_two_view_data
 from _torch_parity import n
 
@@ -205,3 +209,66 @@ def test_cuda_test_scenes_are_test_ransacs(scene):
                               make_two_view_data)}[scene]
     for a, b in zip(mine(), ref()):
         np.testing.assert_array_equal(a, b)
+
+
+def _hypotheses(seed, h):
+    """h F hypotheses of make_two_view_data's scene (its points as float32
+    tensors), the first three replaced by a NaN model, a model whose
+    denominator falls under 1e-12 everywhere and the zero model."""
+    p1, p2 = (torch.as_tensor(p, dtype=torch.float32)
+              for p in make_two_view_data(seed=seed)[:2])
+    g = torch.Generator().manual_seed(seed)
+    sel = ransac.draw_minimal_sets(len(p1), h, 8, g)
+    models = ransac._solve_f_8pt(p1[sel], p2[sel])
+    models[0] = float("nan")
+    models[1] = models[4] * 1e-9
+    models[2] = 0.0
+    return models, p1, p2
+
+
+@pytest.mark.parametrize("seed,h", [(0, 64), (1, 300), (2, 1024)])
+def test_f_residuals_equal_reference_sampson(seed, h):
+    """ransac._f_residuals, the K8 kernel's plain twin, gives
+    benchmark/reference/pairs.sampson's float32 values bit for bit (NaN
+    where the model is NaN, the clamp where the denominator underflows),
+    for a batch of models and for one, and so the same counts."""
+    models, p1, p2 = _hypotheses(seed, h)
+    mine, ref = ransac._f_residuals(models, p1, p2), pairs.sampson(
+        models, p1, p2)
+    assert mine.shape == (h, len(p1)) and mine.dtype == torch.float32
+    torch.testing.assert_close(mine, ref, rtol=0, atol=0, equal_nan=True)
+    assert bool(mine[0].isnan().all()) and not bool(mine[3:].isnan().any())
+    assert bool((mine[2] == 0).all())
+    for k in (1, 3):
+        torch.testing.assert_close(ransac._f_residuals(models[k], p1, p2),
+                                   ref[k], rtol=0, atol=0, equal_nan=True)
+    for thr in (3.0, float(ref[3, 5])):
+        assert torch.equal((mine < thr).sum(1), (ref < thr).sum(1))
+
+
+@pytest.mark.parametrize("h,n,n_sm", [(10000, 51000, 132), (10000, 1400, 132),
+                                      (1024, 300, 132), (513, 257, 132),
+                                      (1, 8, 1), (20000, 10**6, 114)])
+def test_score_plan_covers_the_matches(h, n, n_sm):
+    """The K8 grid's chunks of matches are whole tiles, none empty, and
+    together hold every match; with enough tiles the grid gives each SM
+    about CTAS_PER_SM CTAs."""
+    chunk, chunks = cuda_ransac.plan(h, n, n_sm)
+    assert chunk % cuda_ransac.TILE == 0 and 1 <= chunks <= 65535
+    assert (chunks - 1) * chunk < n <= chunks * chunk
+    ctas = -(-h // cuda_ransac.HYPS) * chunks
+    if chunks * chunk >= cuda_ransac.CTAS_PER_SM * n_sm * cuda_ransac.TILE:
+        assert cuda_ransac.CTAS_PER_SM * n_sm <= ctas
+    assert ctas <= 2 * cuda_ransac.CTAS_PER_SM * n_sm or chunks == 1
+
+
+def test_fundamental_on_the_cpu_keeps_the_plain_scoring():
+    """Points on the CPU are scored by the plain version: K8 does not
+    launch, and its wrapper refuses CPU tensors."""
+    models, p1, p2 = _hypotheses(0, 16)
+    before = cuda_ransac.LAUNCHES
+    ransac.ransac_fundamental(p1, p2, threshold=3.0, num_hypotheses=64,
+                              device="cpu")
+    assert cuda_ransac.LAUNCHES == before
+    with pytest.raises(ValueError, match="float32 CUDA tensor"):
+        cuda_ransac.sampson_counts(models, p1, p2, 3.0)

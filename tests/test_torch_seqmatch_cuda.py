@@ -9,9 +9,10 @@ neither JAX nor the golden fixtures, so on a GPU host it runs as
 Two adjacent 6048x4032 stations of the benchmark's rendered orbit
 (benchmark/scene.py) pushed through the matcher with the configuration
 eth3d_seq_6048x4032's capacities, group table and matching parameters
-(10,000 hypotheses, 4 px): no overflow; the pair's tentative matches
-(the K7 kernel both ways, the ratio and cross-check on the card) equal
-benchmark/reference/pairs.py's float32 2-NN of the same rows; its
+(10,000 hypotheses, 4 px): no overflow; one K8 launch for the pair; the
+pair's tentative matches (the K7 kernel both ways, the ratio and
+cross-check on the card) equal benchmark/reference/pairs.py's float32
+2-NN of the same rows; its
 F-RANSAC replayed by the reference, with the pair's seed, within the
 benchmark cell's limits of the program's (inlier flags that differ,
 over the replay's inliers; the share of the replay's support that the
@@ -45,6 +46,7 @@ def test_pair_at_24mp_equals_plain_reference(dev):
     from benchmark import features, scene
     from benchmark.reference import pairs
     from hesaff_tpu_torch import dist, sfm
+    from hesaff_tpu_torch.ops import cuda_ransac
 
     cell = json.loads((ROOT / "benchmark" / "workloads"
                        / f"{CELL}.json").read_text())
@@ -63,8 +65,10 @@ def test_pair_at_24mp_equals_plain_reference(dev):
                               hypotheses=r["hypotheses"],
                               sampson_px=r["sampson_px"], seed=SEED,
                               device=dev)
+    before = cuda_ransac.LAUNCHES
     a, b = m.push(frames[0]), m.push(frames[1])
     assert a.overflow == 0 and b.overflow == 0
+    assert cuda_ransac.LAUNCHES == before + len(b.pairs) == before + 1
     (p,) = b.pairs
     on = lambda x: torch.as_tensor(x, device=dev)
     r1, r2 = pairs.tentative(on(a.features.desc), on(b.features.desc),
